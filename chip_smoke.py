@@ -1,9 +1,20 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Builds the physics kernel from the checkout, holds it against its plain
-PyTorch version at B=4096, drives the slice's entry points (the batched A1
-env and the deterministic-policy rollout ``train.etg_rl.evaluate``) on the
-card, and times the kernel beside its bound. Imports nothing of JAX.
+Builds both hand-written kernels from the checkout (in parallel) and holds
+each against its plain PyTorch version on the card. Drives the two paths
+of the port through their entry points, each with the launch counts set
+to 0 just before it and read just after:
+
+- physics: the batched A1 env and the deterministic-policy rollout
+  ``train.etg_rl.evaluate`` at B=4096 (one physics launch per step);
+- HRI serving: ``ProactiveGreetingService.process_frame`` with YOLOv4 at
+  416² and the 317-action attention controller at its default widths (6
+  attention launches per decided frame), then ``OfflineEvaluator`` at 64
+  windows; both against the same path on the plain attention.
+
+Times each kernel beside its bound, its plain version and, for attention,
+``F.scaled_dot_product_attention`` as the library yardstick. Imports
+nothing of JAX.
 
     python3 chip_smoke.py
 
@@ -19,6 +30,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -34,6 +46,13 @@ PEAK_FP32_FLOPS = 67e12
 # so at most MAX_DRIFT_FRAC of the envs may exceed TOL.
 TOL = 1e-4
 MAX_DRIFT_FRAC = 1e-3
+# attention kernel vs plain: float32 sums in another order (online softmax
+# over 32-key tiles against one softmax over all keys)
+ATTN_ATOL, ATTN_RTOL = 2e-5, 1e-4
+# serving through the kernel vs through the plain attention, 6 blocks deep
+SERVE_TOL = 1e-4
+FRAMES = 12
+N_WINDOWS = 64
 
 
 def log(phase: str, **kw):
@@ -49,6 +68,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def timed(fn, reps, warm):
+    """Mean ms per call over ``reps`` calls, CUDA-event timed."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a_, b_ = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+    a_.record()
+    for _ in range(reps):
+        fn()
+    b_.record()
+    torch.cuda.synchronize()
+    return a_.elapsed_time(b_) / reps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -58,7 +92,7 @@ def main() -> int:
     from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
     from paddlerobotics_torch.etg import fit
     from paddlerobotics_torch.algos.networks import Actor
-    from paddlerobotics_torch.ops import physics_step
+    from paddlerobotics_torch.ops import attention, physics_step
     from paddlerobotics_torch.sim import sbatch, terrain
     from paddlerobotics_torch.train import etg_rl
     from paddlerobotics_torch.utils import profiler
@@ -71,16 +105,20 @@ def main() -> int:
         cuda=torch.version.cuda, name=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count(), allow_tf32=False)
 
-    # --- build ---------------------------------------------------------------
+    # --- build: one nvcc per source, started together --------------------------
     t0 = time.perf_counter()
-    physics_step.build()
-    info = physics_step.build_info
-    regs = {k.split("ILi")[-1].split("E")[0] if "ILi" in k else k: v
-            for k, v in info["ptxas"].items()}
-    log("build", seconds=round(time.perf_counter() - t0, 1),
-        ptxas=json.dumps(regs, sort_keys=True))
-    if not info["ptxas"]:
-        raise RuntimeError("no -Xptxas -v report for the kernel")
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(physics_step.build), ex.submit(attention.build)]:
+            f.result()
+    for name, info in (("physics_step", physics_step.build_info),
+                       ("attention", attention.build_info)):
+        regs = {k.split("ILi")[-1].split("E")[0] if "ILi" in k else k: v
+                for k, v in info["ptxas"].items()}
+        log("build", kernel=name, seconds=round(info["seconds"], 1),
+            ptxas=json.dumps(regs, sort_keys=True))
+        if not info["ptxas"]:
+            raise RuntimeError(f"no -Xptxas -v report for {name}")
+    log("build", wall_seconds=round(time.perf_counter() - t0, 1))
 
     # --- kernel against plain ------------------------------------------------
     rng = np.random.default_rng(0)
@@ -272,19 +310,6 @@ def main() -> int:
     p = sbatch.BDynParams.default(B, device=dev)
     act = rb.s.q.clone()
 
-    def timed(fn, reps, warm):
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        a_, b_ = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        a_.record()
-        for _ in range(reps):
-            fn()
-        b_.record()
-        torch.cuda.synchronize()
-        return a_.elapsed_time(b_) / reps
-
     kern = lambda: physics_step.control_step(rb, act, p, sim, h_fn)
     plain = lambda: sbatch.control_step(rb, act, p, sim, h_fn)
     ms = [timed(kern, 200, 20), timed(plain, 3, 1), timed(plain, 3, 0),
@@ -323,12 +348,277 @@ def main() -> int:
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
     }]
+    kernels.append(hri_phases(dev, card))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def hri_phases(dev, card, size=416, ctrl_cfg=None) -> dict:
+    """The HRI serving path and the attention kernel; returns the kernel's
+    entry of the ``kernels`` line. ``size`` and ``ctrl_cfg`` (default: the
+    317-action controller at its default widths) shrink the serving path
+    for a rehearsal on the CPU."""
+    import torch.nn.functional as F
+
+    from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
+                                                         AttnCtrlConfig)
+    from paddlerobotics_torch.hri.eval_client import OfflineEvaluator
+    from paddlerobotics_torch.hri.perception.scene import SceneSensor
+    from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
+                                                  ServiceConfig)
+    from paddlerobotics_torch.hri.transformer import (frame_ids_to_attn_mask,
+                                                      merge_padding_mask)
+    from paddlerobotics_torch.ops import attention
+    from paddlerobotics_torch.utils import profiler
+
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(dev)
+    gen.manual_seed(1)
+    F_, K_ = 10, 20                     # window: frames × tokens per frame
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def pad_mask(B, n):
+        """(B, n) padding mask with absent detections: each frame of K_
+        slots keeps its first 1..K_ (the scene sensor's layout)."""
+        keep = rng.integers(1, K_ + 1, size=(B, n // K_))
+        slots = np.arange(K_)[None, None] < keep[..., None]
+        return torch.as_tensor(slots.reshape(B, n), dtype=torch.float32,
+                               device=dev)
+
+    def window_mask(B, past=0, T=F_ * K_):
+        """The controller's mask: block-causal over frame ids, merged with
+        the padding; with a past-KV cache of ``past`` keys in front."""
+        fids = torch.arange(1, T // K_ + 1, device=dev).repeat_interleave(K_)
+        m = frame_ids_to_attn_mask(fids[None].expand(B, T))
+        pad = pad_mask(B, past + T)
+        if past:
+            m = torch.cat([m.new_ones(B, T, past), m], dim=-1)
+        return merge_padding_mask(m, pad)
+
+    # --- attention kernel against its plain version ---------------------------
+    def qkv(B, H, T, S, hd):
+        return randn(B, H, T, hd), randn(B, H, S, hd), randn(B, H, S, hd)
+
+    full = (torch.rand(2, 64, 64, generator=gen, device=dev) < 0.5).float()
+    full[:, ::3] = 0.0                  # every third row: no key at all
+    cases = [
+        ("serving", qkv(1, 8, 200, 200, 64), window_mask(1)),
+        ("past_kv", qkv(1, 8, 20, 200, 64), window_mask(1, past=180, T=20)),
+        ("fully_masked_rows", qkv(2, 8, 64, 64, 64), full),
+        ("ragged", qkv(2, 3, 37, 53, 32),
+         (torch.rand(2, 37, 53, generator=gen, device=dev) < 0.5).float()),
+        ("windows_64", qkv(N_WINDOWS, 8, 200, 200, 64),
+         window_mask(N_WINDOWS)),
+        ("hd16", qkv(2, 4, 40, 40, 16),
+         (torch.rand(2, 40, 40, generator=gen, device=dev) < 0.7).float()),
+    ]
+    worst, failed = 0.0, []
+    for name, (q, k, v), m in cases:
+        out = attention.flash_attention(q, k, v, m)
+        ref = attention.reference_attention(q, k, v, m)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        dead = m.amax(-1) == 0                       # (B,T) rows with no key
+        dead_zero = bool((out.permute(0, 2, 1, 3)[dead] == 0).all().item())
+        ok = (bool(torch.isfinite(out).all().item()) and dead_zero and
+              torch.allclose(out, ref, atol=ATTN_ATOL, rtol=ATTN_RTOL))
+        worst = max(worst, err)
+        log("attn_kernel_vs_plain", case=name, shape=tuple(q.shape),
+            S=k.shape[2], max_abs_err=err, dead_rows=int(dead.sum()),
+            dead_rows_zero=dead_zero, result="pass" if ok else "FAIL")
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"attention kernel disagrees with plain in {failed}")
+
+    # --- the serving path: 12 frames, 9 fill the window, 3 decided ------------
+    scene = SceneSensor(input_size=size, device=dev, generator=gen)  # YOLOv4
+    ctrl = AttentionController(ctrl_cfg or AttnCtrlConfig(num_actions=317),
+                               device=dev, generator=gen)
+    scfg = ServiceConfig(trigger_threshold=0.0, wakeup_cooldown_s=0.0,
+                         near_field_frac=0.0)
+    frames = rng.random((FRAMES, size, size, 3), dtype=np.float32)
+
+    def new_service():
+        g = torch.Generator(dev)
+        g.manual_seed(2)
+        return ProactiveGreetingService(scfg, scene, ctrl, generator=g,
+                                        device=dev)
+
+    def serve(svc):
+        """Decisions and per-frame ms (total; detect and attend stages)."""
+        times = {"frame": [], "detect": [], "attend": []}
+        for stage in ("detect", "attend"):
+            fn = getattr(svc, "_" + stage)
+
+            def stage_timed(*a, fn=fn, stage=stage):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                times[stage].append(1e3 * (time.perf_counter() - t))
+                return out
+
+            setattr(svc, "_" + stage, stage_timed)
+        decisions = []
+        for img in frames:
+            t = time.perf_counter()
+            decisions.append(svc.process_frame(img))
+            times["frame"].append(1e3 * (time.perf_counter() - t))
+        return decisions, times
+
+    serve(new_service())                # warm-up: cuDNN, cuBLAS, allocator
+    torch.cuda.synchronize()
+    attention.flash_attention.launches = 0
+    decisions, times = serve(new_service())
+    torch.cuda.synchronize()
+    launches = attention.flash_attention.launches
+    decided = decisions[F_ - 1:]
+    scores = [d.get("trigger_score", float("nan")) for d in decided]
+    p50 = {k: float(np.median(v)) for k, v in times.items()}
+    log("serve", frames=FRAMES, decided=len(decided), kernel_launches=launches,
+        trigger_scores=json.dumps(scores),
+        triggered=sum(bool(d["triggered"]) for d in decisions),
+        action_ids=json.dumps([d.get("action_id") for d in decided]),
+        p50_frame_ms=round(p50["frame"], 3),
+        p50_detect_ms=round(p50["detect"], 3),
+        p50_attend_ms=round(p50["attend"], 3),
+        frames_per_s=round(1e3 / p50["frame"], 2), card=repr(card))
+    if launches != 6 * len(decided) or launches != 18:
+        raise RuntimeError(f"{launches} attention launches for "
+                           f"{len(decided)} decided frames, expected 18")
+    if not all(np.isfinite(scores)):
+        raise RuntimeError(f"non-finite trigger scores {scores}")
+
+    # where a decided frame's time goes on the card (torch.profiler)
+    svc = new_service()
+    img = torch.as_tensor(frames[0], device=dev)[None]
+    inst = svc._detect(img)
+    win = (inst.tokens.repeat(1, F_, 1), svc._frame_ids,
+           inst.valid.repeat(1, F_).to(torch.float32))
+    for stage, fn in (("detect", lambda: svc._detect(img)),
+                      ("attend", lambda: svc._attend(*win))):
+        prof = profiler.device_breakdown(fn, reps=5)
+        log("serve_profile", stage=stage,
+            **{k: (json.dumps(v) if k == "top" else round(v, 4))
+               for k, v in prof.items()})
+
+    # --- the same frames through the plain attention on the card ---------------
+    orig = attention.flash_attention
+    attention.flash_attention = attention.reference_attention
+    try:
+        plain_decisions, _ = serve(new_service())
+    finally:
+        attention.flash_attention = orig
+    d_score, same = 0.0, True
+    for a, b in zip(decisions, plain_decisions):
+        same &= a.get("reason") == b.get("reason")
+        same &= a["triggered"] == b["triggered"]
+        if "trigger_score" in a:
+            d_score = max(d_score, abs(a["trigger_score"] - b["trigger_score"]))
+        if a["triggered"] and b["triggered"]:
+            same &= bool(np.allclose(a["target_bbox"], b["target_bbox"],
+                                     atol=SERVE_TOL))
+    log("serve_vs_plain", max_abs_diff_trigger_score=d_score,
+        reasons_and_targets_equal=same,
+        action_ids_equal=[a.get("action_id") for a in decisions] ==
+        [b.get("action_id") for b in plain_decisions])
+    if d_score > SERVE_TOL or not same:
+        raise RuntimeError("serving through the kernel disagrees with the "
+                           "plain attention")
+
+    # --- offline batch scorer at 64 windows ------------------------------------
+    ev = OfflineEvaluator(new_service())
+    windows = rng.standard_normal((N_WINDOWS, F_, K_, 562)).astype(np.float32)
+    valid = rng.random((N_WINDOWS, F_, K_)) > 0.3
+    s_kernel = ev.score_windows(windows, valid)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        ev.score_windows(windows, valid)
+    torch.cuda.synchronize()
+    sw_ms = 1e3 * (time.perf_counter() - t) / reps
+    attention.flash_attention = attention.reference_attention
+    try:
+        s_plain = ev.score_windows(windows, valid)
+    finally:
+        attention.flash_attention = orig
+    d_sw = float(np.abs(s_kernel - s_plain).max())
+    log("score_windows", N=N_WINDOWS, ms_per_call=round(sw_ms, 3),
+        windows_per_s=round(N_WINDOWS * 1e3 / sw_ms, 1),
+        max_abs_diff_vs_plain=d_sw, finite=bool(np.isfinite(s_kernel).all()),
+        card=repr(card))
+    if d_sw > SERVE_TOL or not np.isfinite(s_kernel).all():
+        raise RuntimeError("score_windows through the kernel disagrees with "
+                           "the plain attention")
+
+    # --- kernel time beside its bound, the plain version and SDPA ---------------
+    def sdpa(q, k, v, m):
+        """The library yardstick: additive float mask, then fully masked
+        rows zeroed (SDPA averages them uniformly)."""
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=(-1e10 * (1.0 - m))[:, None])
+        return out * (m.amax(-1) > 0).to(q.dtype)[:, None, :, None]
+
+    entry = None
+    for name, (q, k, v), m in (cases[0], cases[4]):
+        B, H, T, hd = q.shape
+        S = k.shape[2]
+        kern = lambda: attention.flash_attention(q, k, v, m)
+        plain = lambda: attention.reference_attention(q, k, v, m)
+        lib = lambda: sdpa(q, k, v, m)
+        lib_err = (lib() - plain()).abs().max().item()
+        ms = [timed(kern, 100, 10), timed(plain, 100, 10), timed(lib, 100, 10),
+              timed(lib, 100, 0), timed(plain, 100, 0), timed(kern, 100, 0)]
+        kernel_ms, plain_ms = min(ms[0], ms[5]), min(ms[1], ms[4])
+        lib_ms = min(ms[2], ms[3])
+        dev_ms = {n: profiler.device_breakdown(f, reps=20)
+                  for n, f in (("kernel", kern), ("plain", plain),
+                               ("sdpa", lib))}
+        flops = 4 * B * H * T * S * hd              # the two products
+        n_bytes = 4 * (q.numel() + k.numel() + v.numel() + m.numel()
+                       + q.numel())
+        b_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        b_ops = flops / PEAK_FP32_FLOPS * 1e3
+        bound_ms = max(b_bytes, b_ops)
+        log("attn_kernel_time", case=name, B=B, H=H, T=T, S=S, hd=hd,
+            kernel_ms=round(kernel_ms, 5), plain_ms=round(plain_ms, 5),
+            sdpa_ms=round(lib_ms, 5), sdpa_max_abs_err_vs_plain=lib_err,
+            **{f"{n}_device_ms": round(d["device_ms_per_call"], 5)
+               for n, d in dev_ms.items()},
+            # per launch over the launches the profiler caught (it can
+            # drop one at the window's edge)
+            kernel_device_ms_per_launch=round(
+                dev_ms["kernel"]["device_ms_per_call"]
+                / max(dev_ms["kernel"]["kernels_per_call"], 1e-9), 5),
+            **{f"{n}_kernels": d["kernels_per_call"]
+               for n, d in dev_ms.items()},
+            flops=flops, bytes=n_bytes, bound_bytes_ms=round(b_bytes, 6),
+            bound_ops_ms=round(b_ops, 6), bound_ms=round(bound_ms, 6),
+            bound_share=round(bound_ms / kernel_ms, 4), card=repr(card))
+        if entry is None:               # the serving shape goes in the line
+            entry = {
+                "name": "flash_attention",
+                "route": "cuda",
+                "source": "paddlerobotics_torch/ops/csrc/attention.cu",
+                "replaces": "paddlerobotics_tpu/ops/pallas/attention.py:61",
+                "launches": launches,
+                "max_abs_err": worst,
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                "library_ms": lib_ms,
+            }
+    return entry
+
 
 
 def count_ops_per_env(sim, h_fn) -> float:

@@ -3,16 +3,19 @@
 A 2×256 ReLU MLP with mean and clamped log-std heads (LOG_SIG_MIN/MAX
 −20/2, mujoco_model.py:21-22). The four layers keep the flax module's
 order (Dense_0..Dense_3) so ``convert.actor_from_flax`` maps one onto the
-other.
+other. It runs on the card unless the caller asks for another device
+(``core/device.resolve_device``).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
 import torch
 from torch import nn
+
+from paddlerobotics_torch.core.device import resolve_device
+from paddlerobotics_torch.utils.init import flax_default_
 
 LOG_SIG_MIN = -20.0
 LOG_SIG_MAX = 2.0
@@ -23,6 +26,7 @@ class Actor(nn.Module):
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        device = resolve_device(device)
         self.dense = nn.ModuleList([
             nn.Linear(obs_dim, hidden, device=device),
             nn.Linear(hidden, hidden, device=device),
@@ -30,14 +34,7 @@ class Actor(nn.Module):
             nn.Linear(hidden, action_dim, device=device),   # log std
         ])
         if generator is not None:
-            # flax's Dense default: lecun-normal kernels, zero biases
-            with torch.no_grad():
-                for lin in self.dense:
-                    std = 1.0 / math.sqrt(lin.in_features)
-                    w = torch.randn(lin.weight.shape, generator=generator,
-                                    device=generator.device)
-                    lin.weight.copy_(w * std)
-                    lin.bias.zero_()
+            flax_default_(self, generator)
 
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = torch.relu(self.dense[0](obs))

@@ -2,6 +2,8 @@
 
 Takes plain numpy arrays (the caller does ``np.asarray`` on the JAX side)
 and builds the port's modules and state types; imports nothing of JAX.
+Modules whose submodules carry flax's scope names (the HRI controller and
+YOLOv4) load a flax variable tree by path with ``load_flax``.
 """
 
 from __future__ import annotations
@@ -12,15 +14,21 @@ import numpy as np
 import torch
 
 from paddlerobotics_torch.algos.networks import Actor
+from paddlerobotics_torch.core.device import resolve_device
+from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
+                                                     AttnCtrlConfig)
+from paddlerobotics_torch.hri.perception.scene import SceneSensor
 from paddlerobotics_torch.sim.sbatch import (BContact, BDynParams, BQuadState,
                                              BRobot)
 
 
-def actor_from_flax(params_np: Mapping, device: str | torch.device = "cpu"
-                    ) -> Actor:
+def actor_from_flax(params_np: Mapping,
+                    device: str | torch.device | None = None) -> Actor:
     """Flax actor tree (nested dicts of numpy arrays, ``Dense_0..Dense_3``
     with ``kernel`` (in, out) and ``bias``; an outer ``params`` level is
-    accepted) → the port's Actor with ``weight = kernel.T``."""
+    accepted) → the port's Actor with ``weight = kernel.T``, on the card
+    unless ``device`` says otherwise."""
+    device = resolve_device(device)
     p = params_np.get("params", params_np)
     k0 = np.asarray(p["Dense_0"]["kernel"])
     k2 = np.asarray(p["Dense_2"]["kernel"])
@@ -61,3 +69,72 @@ def robot_from_numpy(fields: Mapping, device: str | torch.device = "cpu"
                   tau=_t(fields["tau"], device), contact=c,
                   obs_hist=_t(fields["obs_hist"], device),
                   hist_head=int(fields["hist_head"]))
+
+
+def _flatten(tree: Mapping, prefix=()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def load_flax(module: torch.nn.Module, variables: Mapping) -> None:
+    """Copy a flax variable tree (``params`` and ``batch_stats``, numpy
+    arrays) into ``module``, whose submodule paths are the flax scopes.
+
+    Dense kernels (in, out) become ``weight`` (out, in); Conv kernels HWIO
+    become OIHW; ``scale`` → ``weight``; BatchNorm ``mean`` / ``var`` →
+    ``running_mean`` / ``running_var``; any other leaf is a raw parameter
+    of the same name. Every parameter and running statistic of ``module``
+    must be set exactly once, with matching shapes."""
+    params = variables.get("params", variables)
+    stats = variables.get("batch_stats", {})
+    targets = dict(module.named_parameters())
+    targets.update((n, b) for n, b in module.named_buffers()
+                   if n.rsplit(".", 1)[-1] in ("running_mean", "running_var"))
+    leaf_name = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                 "mean": "running_mean", "var": "running_var"}
+    done = set()
+    items = list(_flatten(params).items()) + list(_flatten(stats).items())
+    with torch.no_grad():
+        for path, arr in items:
+            arr = np.asarray(arr, np.float32)
+            leaf = path[-1]
+            if leaf == "kernel":
+                arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+            name = ".".join(path[:-1] + (leaf_name.get(leaf, leaf),))
+            if name not in targets or name in done:
+                raise KeyError(f"flax variable {'/'.join(path)} has no "
+                               f"unset counterpart {name}")
+            t = targets[name]
+            if tuple(t.shape) != arr.shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, flax "
+                                 f"{arr.shape}")
+            t.copy_(torch.as_tensor(np.ascontiguousarray(arr)))
+            done.add(name)
+    missing = sorted(set(targets) - done)
+    if missing:
+        raise KeyError(f"not set from the flax tree: {missing[:5]}")
+
+
+def ctrl_from_flax(params_np: Mapping, cfg: AttnCtrlConfig,
+                   device: str | torch.device | None = None
+                   ) -> AttentionController:
+    """Flax ``AttentionController`` variables → the port's controller, on
+    the card unless ``device`` says otherwise."""
+    ctrl = AttentionController(cfg, device=device)
+    load_flax(ctrl, params_np)
+    return ctrl
+
+
+def scene_from_flax(variables_np: Mapping, num_classes: int = 80,
+                    input_size: int = 416,
+                    device: str | torch.device | None = None) -> SceneSensor:
+    """Flax YOLOv4 variables (``params`` and ``batch_stats``) → the port's
+    ``SceneSensor``, on the card unless ``device`` says otherwise."""
+    scene = SceneSensor(num_classes, input_size, device=device)
+    load_flax(scene.model, variables_np)
+    return scene

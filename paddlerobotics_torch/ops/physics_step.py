@@ -9,13 +9,13 @@ It dispatches on the device of the state it is given:
 - CUDA tensors launch the kernel in ``ops/csrc/physics_step.cu`` or raise.
   There is no fallback.
 
-The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The build
-lands in ``build/torch_kernels/`` at the repository root, keyed by a hash
-of the source, the generated constants header and the flags. The
-constants header is generated here from the port's own constants, with
-every value that the plain version folds in double precision folded the
-same way, so both versions round at the same places.
+The kernel is compiled at first use through ``ops/build.py`` (``nvcc`` for
+``sm_90a``, a plain C interface loaded with ``ctypes``, into
+``build/torch_kernels/`` keyed by a hash of the source, the generated
+constants header and the flags). The constants header is generated here
+from the port's own constants, with every value that the plain version
+folds in double precision folded the same way, so both versions round at
+the same places.
 
 ``control_step.launches`` counts kernel launches (plain-version calls do
 not count); a caller may reset it to 0.
@@ -24,18 +24,13 @@ not count); a caller may reset it to 0.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import re
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
 
 from paddlerobotics_torch.core.config import SimConfig
+from paddlerobotics_torch.ops import build as kbuild
 from paddlerobotics_torch.ops import smallalg as sa
 from paddlerobotics_torch.sim import a1_model as a1
 from paddlerobotics_torch.sim import dynamics as dyn
@@ -44,11 +39,9 @@ from paddlerobotics_torch.sim.sbatch import (BContact, BDynParams, BQuadState,
                                              BRobot, F32, OBS_ROW)
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "physics_step.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              # no FMA contraction: the plain version rounds every product
-              "--fmad=false")
+# after ops/build.BASE_FLAGS; no FMA contraction: the plain version rounds
+# every product
+NVCC_FLAGS = ("--fmad=false",)
 
 # Layout of the C entry point's pointer / float / int arrays
 # (physics_step.cu, prt_control_step).
@@ -143,62 +136,13 @@ def consts_header() -> str:
     return "\n".join(lines) + "\n"
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernel is built from "
-                       "ops/csrc/physics_step.cu with the CUDA toolkit")
-
-
-def _parse_ptxas(log: str) -> dict:
-    """Registers and spill bytes per kernel instantiation from -Xptxas -v."""
-    out = {}
-    name = None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and name:
-            out.setdefault(name, {}).update(
-                stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.setdefault(name, {})["registers"] = int(m.group(1))
-    return out
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
     if _lib is not None:
         return _lib
-    header = consts_header()
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + header.encode() +
-                         " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_DIR / key
-    so = out_dir / "libphysics_step.so"
-    log_path = out_dir / "ptxas.log"
-    t0 = time.perf_counter()
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / "physics_consts.h").write_text(header)
-        tmp = out_dir / f"libphysics_step.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp),
-               str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-        log_path.write_text(res.stdout + res.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, info = kbuild.build_library("physics_step", SOURCE, NVCC_FLAGS,
+                                     {"physics_consts.h": consts_header()})
     fn = lib.prt_control_step
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -206,9 +150,7 @@ def build() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.prt_error_string.argtypes = [ctypes.c_int]
     lib.prt_error_string.restype = ctypes.c_char_p
-    log = log_path.read_text() if log_path.exists() else ""
-    build_info.update(seconds=time.perf_counter() - t0, path=str(so),
-                      ptxas=_parse_ptxas(log), log=log)
+    build_info.update(info)
     _lib = lib
     return lib
 

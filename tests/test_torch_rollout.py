@@ -33,7 +33,7 @@ def _params_np(tree):
 def test_actor_from_flax_round_trip():
     actor_j = JActor(12, hidden=256)
     params = actor_j.init(jax.random.key(4), jnp.zeros((1, 49)))
-    actor_t = convert.actor_from_flax(_params_np(params))
+    actor_t = convert.actor_from_flax(_params_np(params), device="cpu")
     obs = np.random.default_rng(0).standard_normal((16, 49)).astype(np.float32)
     mean_j, log_std_j = actor_j.apply(params, jnp.asarray(obs))
     with torch.no_grad():
@@ -56,7 +56,7 @@ def test_evaluate_matches_trainer_evaluate(tmp_path):
                                              trainer._b0, STEPS)
 
     env = BatchedQuadrupedEnv(QuadrupedConfig(), B, device="cpu")
-    actor = convert.actor_from_flax(_params_np(params))
+    actor = convert.actor_from_flax(_params_np(params), device="cpu")
     w0 = torch.as_tensor(np.array(trainer._w0))
     b0 = torch.as_tensor(np.array(trainer._b0))
     ret_t, len_t, infos_t = etg_rl.evaluate(env, actor, w0, b0, STEPS)
