@@ -9,7 +9,8 @@ to 0 just before it and read just after:
   ``train.etg_rl.evaluate`` at B=4096 (one physics launch per step);
 - HRI serving: ``ProactiveGreetingService.process_frame`` with YOLOv4 at
   416² and the 317-action attention controller at its default widths (6
-  attention launches per decided frame), then ``OfflineEvaluator`` at 64
+  attention launches per decided frame), then ``STEADY_FRAMES`` decided
+  frames once the window is full, then ``OfflineEvaluator`` at 64
   windows; both against the same path on the plain attention.
 
 Times each kernel beside its bound, its plain version and, for attention,
@@ -51,7 +52,9 @@ MAX_DRIFT_FRAC = 1e-3
 ATTN_ATOL, ATTN_RTOL = 2e-5, 1e-4
 # serving through the kernel vs through the plain attention, 6 blocks deep
 SERVE_TOL = 1e-4
-FRAMES = 12
+SIZE = 416                              # YOLOv4 input, the serving resolution
+FRAMES = 12                             # 9 fill the window, 3 are decided
+STEADY_FRAMES = 50                      # decided frames of the throughput run
 N_WINDOWS = 64
 
 
@@ -357,11 +360,9 @@ def main() -> int:
     return 0
 
 
-def hri_phases(dev, card, size=416, ctrl_cfg=None) -> dict:
+def hri_phases(dev, card) -> dict:
     """The HRI serving path and the attention kernel; returns the kernel's
-    entry of the ``kernels`` line. ``size`` and ``ctrl_cfg`` (default: the
-    317-action controller at its default widths) shrink the serving path
-    for a rehearsal on the CPU."""
+    entry of the ``kernels`` line."""
     import torch.nn.functional as F
 
     from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
@@ -438,12 +439,12 @@ def hri_phases(dev, card, size=416, ctrl_cfg=None) -> dict:
         raise RuntimeError(f"attention kernel disagrees with plain in {failed}")
 
     # --- the serving path: 12 frames, 9 fill the window, 3 decided ------------
-    scene = SceneSensor(input_size=size, device=dev, generator=gen)  # YOLOv4
-    ctrl = AttentionController(ctrl_cfg or AttnCtrlConfig(num_actions=317),
-                               device=dev, generator=gen)
+    scene = SceneSensor(input_size=SIZE, device=dev, generator=gen)  # YOLOv4
+    ctrl = AttentionController(AttnCtrlConfig(num_actions=317), device=dev,
+                               generator=gen)
     scfg = ServiceConfig(trigger_threshold=0.0, wakeup_cooldown_s=0.0,
                          near_field_frac=0.0)
-    frames = rng.random((FRAMES, size, size, 3), dtype=np.float32)
+    frames = rng.random((FRAMES, SIZE, SIZE, 3), dtype=np.float32)
 
     def new_service():
         g = torch.Generator(dev)
@@ -452,8 +453,8 @@ def hri_phases(dev, card, size=416, ctrl_cfg=None) -> dict:
                                         device=dev)
 
     def serve(svc):
-        """Decisions and per-frame ms (total; detect and attend stages)."""
-        times = {"frame": [], "detect": [], "attend": []}
+        """Decisions and per-stage ms (detect and attend)."""
+        times = {"detect": [], "attend": []}
         for stage in ("detect", "attend"):
             fn = getattr(svc, "_" + stage)
 
@@ -466,12 +467,7 @@ def hri_phases(dev, card, size=416, ctrl_cfg=None) -> dict:
                 return out
 
             setattr(svc, "_" + stage, stage_timed)
-        decisions = []
-        for img in frames:
-            t = time.perf_counter()
-            decisions.append(svc.process_frame(img))
-            times["frame"].append(1e3 * (time.perf_counter() - t))
-        return decisions, times
+        return [svc.process_frame(img) for img in frames], times
 
     serve(new_service())                # warm-up: cuDNN, cuBLAS, allocator
     torch.cuda.synchronize()
@@ -486,15 +482,58 @@ def hri_phases(dev, card, size=416, ctrl_cfg=None) -> dict:
         trigger_scores=json.dumps(scores),
         triggered=sum(bool(d["triggered"]) for d in decisions),
         action_ids=json.dumps([d.get("action_id") for d in decided]),
-        p50_frame_ms=round(p50["frame"], 3),
         p50_detect_ms=round(p50["detect"], 3),
-        p50_attend_ms=round(p50["attend"], 3),
-        frames_per_s=round(1e3 / p50["frame"], 2), card=repr(card))
+        p50_attend_ms=round(p50["attend"], 3), card=repr(card))
     if launches != 6 * len(decided) or launches != 18:
         raise RuntimeError(f"{launches} attention launches for "
                            f"{len(decided)} decided frames, expected 18")
     if not all(np.isfinite(scores)):
         raise RuntimeError(f"non-finite trigger scores {scores}")
+
+    # steady state: once the window is full every frame detects and
+    # attends; frames/s is all of them over the run's wall time, and each
+    # frame's latency ends in the decision's read-back to the host. The
+    # stages are timed on the host clock with no synchronize: the time to
+    # dispatch them; the rest of a frame is the image copy, the window
+    # stack, the wait for the card and sampling
+    svc = new_service()
+    for img in frames[:F_]:
+        svc.process_frame(img)
+    steady = rng.random((STEADY_FRAMES, SIZE, SIZE, 3), dtype=np.float32)
+    host = {"detect": [], "attend": []}
+    for stage in host:
+        def host_timed(*a, fn=getattr(svc, "_" + stage), stage=stage):
+            t = time.perf_counter()
+            out = fn(*a)
+            host[stage].append(1e3 * (time.perf_counter() - t))
+            return out
+
+        setattr(svc, "_" + stage, host_timed)
+    lat, steady_scores = [], []
+    attention.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for img in steady:
+        t = time.perf_counter()
+        steady_scores.append(svc.process_frame(img).get("trigger_score",
+                                                        float("nan")))
+        lat.append(1e3 * (time.perf_counter() - t))
+    wall = time.perf_counter() - t0
+    steady_launches = attention.flash_attention.launches
+    log("serve_steady", frames=STEADY_FRAMES, seconds=round(wall, 4),
+        frames_per_s=round(STEADY_FRAMES / wall, 3),
+        p50_frame_ms=round(float(np.percentile(lat, 50)), 3),
+        p99_frame_ms=round(float(np.percentile(lat, 99)), 3),
+        max_frame_ms=round(max(lat), 3),
+        p50_host_detect_ms=round(float(np.median(host["detect"])), 3),
+        p50_host_attend_ms=round(float(np.median(host["attend"])), 3),
+        frames_over_2x_p50=int(sum(x > 2 * np.median(lat) for x in lat)),
+        kernel_launches=steady_launches, card=repr(card))
+    if steady_launches != 6 * STEADY_FRAMES:
+        raise RuntimeError(f"{steady_launches} attention launches for "
+                           f"{STEADY_FRAMES} decided frames")
+    if not all(np.isfinite(steady_scores)):
+        raise RuntimeError("a steady-state frame was not decided")
 
     # where a decided frame's time goes on the card (torch.profiler)
     svc = new_service()
@@ -618,7 +657,6 @@ def hri_phases(dev, card, size=416, ctrl_cfg=None) -> dict:
                 "library_ms": lib_ms,
             }
     return entry
-
 
 
 def count_ops_per_env(sim, h_fn) -> float:

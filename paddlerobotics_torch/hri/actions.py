@@ -38,33 +38,12 @@ MOVEMENT_TO_ID = {
 }
 
 
-def _invert(d):
-    return {v: k for k, v in d.items()}
-
-
 def action_to_id(a, version="v1"):
     return (ACTION_TO_ID if version == "v1" else ACTION_TO_ID_V2)[a]
 
 
-def id_to_action(i, version="v1"):
-    return _invert(ACTION_TO_ID if version == "v1" else ACTION_TO_ID_V2)[i]
-
-
 def expression_to_id(e, version="v1"):
     return (EXPRESSION_TO_ID if version == "v1" else EXPRESSION_TO_ID_V2)[e]
-
-
-def id_to_expression(i, version="v1"):
-    return _invert(EXPRESSION_TO_ID if version == "v1"
-                   else EXPRESSION_TO_ID_V2)[i]
-
-
-def movement_to_id(m):
-    return MOVEMENT_TO_ID[m]
-
-
-def id_to_movement(i):
-    return _invert(MOVEMENT_TO_ID)[i]
 
 
 def action_set_size(version="v1"):
@@ -73,10 +52,6 @@ def action_set_size(version="v1"):
 
 def expression_set_size(version="v1"):
     return len(EXPRESSION_TO_ID if version == "v1" else EXPRESSION_TO_ID_V2)
-
-
-def movement_set_size():
-    return len(MOVEMENT_TO_ID)
 
 
 @dataclasses.dataclass
