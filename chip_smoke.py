@@ -14,8 +14,8 @@ to 0 just before it and read just after:
   windows; both against the same path on the plain attention.
 
 Times each kernel beside its bound, its plain version and, for attention,
-``F.scaled_dot_product_attention`` as the library yardstick. Imports
-nothing of JAX.
+``F.scaled_dot_product_attention`` as the library yardstick, and the
+attention wrapper's host cost per call. Imports nothing of JAX.
 
     python3 chip_smoke.py
 
@@ -28,6 +28,7 @@ the line before it lists every kernel with its launches, error and times.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -38,9 +39,11 @@ import torch
 
 B = 4096
 EVAL_STEPS = 200
-# H100 SXM data sheet: HBM3 bandwidth and FP32 (non-tensor) peak.
+# H100 SXM data sheet: HBM3 bandwidth, FP32 (non-tensor) and dense TF32
+# tensor-core peaks.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # Kernel vs plain: after one control step every env agrees to TOL; after
 # three, contact onsets (the damping term d·vn·[phi > 0] jumps at phi = 0)
 # may let a last-bit difference grow in an env that is just touching down,
@@ -48,7 +51,8 @@ PEAK_FP32_FLOPS = 67e12
 TOL = 1e-4
 MAX_DRIFT_FRAC = 1e-3
 # attention kernel vs plain: float32 sums in another order (online softmax
-# over 32-key tiles against one softmax over all keys)
+# over key tiles against one softmax over all keys; products in three TF32
+# passes, float32-accurate)
 ATTN_ATOL, ATTN_RTOL = 2e-5, 1e-4
 # serving through the kernel vs through the plain attention, 6 blocks deep
 SERVE_TOL = 1e-4
@@ -56,6 +60,7 @@ SIZE = 416                              # YOLOv4 input, the serving resolution
 FRAMES = 12                             # 9 fill the window, 3 are decided
 STEADY_FRAMES = 50                      # decided frames of the throughput run
 N_WINDOWS = 64
+HOST_CALLS = 1000                       # wrapper calls of [attn_host]
 
 
 def log(phase: str, **kw):
@@ -69,6 +74,28 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def instance(kernel_name: str) -> str:
+    """A kernel's template arguments from its mangled name, e.g. '64,4,1,64'."""
+    return ",".join(re.findall(r"Li(\d+)E", kernel_name)) or kernel_name
+
+
+def attn_bound(B: int, H: int, T: int, S: int, hd: int) -> dict:
+    """Least time of one attention call on the card (ms): q, k, v, the mask
+    and the output moved once each at the HBM rate; the two products,
+    4·B·H·T·S·hd operations, at the fp32 CUDA-core peak (the figure of the
+    first kernel, kept for continuity) and, as the kernel computes them, in
+    three TF32 passes at the dense TF32 peak. The bound is the larger of
+    the bytes and the tensor-core figure."""
+    flops = 4 * B * H * T * S * hd
+    n_bytes = 4 * (2 * B * H * T * hd + 2 * B * H * S * hd + B * T * S)
+    b_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    b_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    return {"flops": flops, "bytes": n_bytes, "bound_bytes_ms": b_bytes,
+            "bound_ops_fp32_ms": flops / PEAK_FP32_FLOPS * 1e3,
+            "bound_ops_tc_ms": b_tc, "bound_ms": max(b_bytes, b_tc),
+            "bound_by": "bytes" if b_bytes >= b_tc else "operations"}
 
 
 def timed(fn, reps, warm):
@@ -115,8 +142,7 @@ def main() -> int:
             f.result()
     for name, info in (("physics_step", physics_step.build_info),
                        ("attention", attention.build_info)):
-        regs = {k.split("ILi")[-1].split("E")[0] if "ILi" in k else k: v
-                for k, v in info["ptxas"].items()}
+        regs = {instance(k): v for k, v in info["ptxas"].items()}
         log("build", kernel=name, seconds=round(info["seconds"], 1),
             ptxas=json.dumps(regs, sort_keys=True))
         if not info["ptxas"]:
@@ -408,6 +434,18 @@ def hri_phases(dev, card) -> dict:
 
     full = (torch.rand(2, 64, 64, generator=gen, device=dev) < 0.5).float()
     full[:, ::3] = 0.0                  # every third row: no key at all
+    # head dims on a wider instance (48 on 64) and the widest (128), each
+    # with ragged T and S and a row with no key; a generator of their own
+    # leaves the serving weights below as they were
+    g_hd = torch.Generator(dev)
+    g_hd.manual_seed(3)
+
+    def hd_case(B, H, T, S, hd):
+        q, k, v = (torch.randn(shape, generator=g_hd, device=dev)
+                   for shape in ((B, H, T, hd), (B, H, S, hd), (B, H, S, hd)))
+        m = (torch.rand(B, T, S, generator=g_hd, device=dev) < 0.6).float()
+        m[:, T // 2] = 0.0
+        return (q, k, v), m
     cases = [
         ("serving", qkv(1, 8, 200, 200, 64), window_mask(1)),
         ("past_kv", qkv(1, 8, 20, 200, 64), window_mask(1, past=180, T=20)),
@@ -418,6 +456,8 @@ def hri_phases(dev, card) -> dict:
          window_mask(N_WINDOWS)),
         ("hd16", qkv(2, 4, 40, 40, 16),
          (torch.rand(2, 40, 40, generator=gen, device=dev) < 0.7).float()),
+        ("hd48", *hd_case(2, 3, 45, 77, 48)),
+        ("hd128", *hd_case(2, 2, 33, 91, 128)),
     ]
     worst, failed = 0.0, []
     for name, (q, k, v), m in cases:
@@ -432,11 +472,23 @@ def hri_phases(dev, card) -> dict:
         worst = max(worst, err)
         log("attn_kernel_vs_plain", case=name, shape=tuple(q.shape),
             S=k.shape[2], max_abs_err=err, dead_rows=int(dead.sum()),
-            dead_rows_zero=dead_zero, result="pass" if ok else "FAIL")
+            dead_rows_zero=dead_zero,
+            plan=json.dumps(attention.launch_plan(*q.shape[:3], q.shape[3])),
+            result="pass" if ok else "FAIL")
         if not ok:
             failed.append(name)
     if failed:
         raise RuntimeError(f"attention kernel disagrees with plain in {failed}")
+    # registers and spills (ptxas) and dynamic shared memory per instance
+    ptxas = {instance(k): v for k, v in attention.build_info["ptxas"].items()}
+    for hd in (16, 32, 64, 128):
+        for B, T in ((1, 16), (4096, 64)):      # the split and wide shapes
+            pl = attention.launch_plan(B, 1, T, hd)
+            key = ",".join(str(pl[f]) for f in (
+                "instance_hd", "query_tiles_per_block", "key_partitions",
+                "keys_per_partition"))
+            log("attn_instance", instance=key, smem_bytes=pl["smem_bytes"],
+                threads=pl["threads"], ptxas=json.dumps(ptxas.get(key)))
 
     # --- the serving path: 12 frames, 9 fill the window, 3 decided ------------
     scene = SceneSensor(input_size=SIZE, device=dev, generator=gen)  # YOLOv4
@@ -621,27 +673,28 @@ def hri_phases(dev, card) -> dict:
         dev_ms = {n: profiler.device_breakdown(f, reps=20)
                   for n, f in (("kernel", kern), ("plain", plain),
                                ("sdpa", lib))}
-        flops = 4 * B * H * T * S * hd              # the two products
-        n_bytes = 4 * (q.numel() + k.numel() + v.numel() + m.numel()
-                       + q.numel())
-        b_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-        b_ops = flops / PEAK_FP32_FLOPS * 1e3
-        bound_ms = max(b_bytes, b_ops)
+        # per launch over the launches the profiler caught (it can drop
+        # one at the window's edge)
+        kernel_dev = (dev_ms["kernel"]["device_ms_per_call"]
+                      / max(dev_ms["kernel"]["kernels_per_call"], 1e-9))
+        bd = attn_bound(B, H, T, S, hd)
         log("attn_kernel_time", case=name, B=B, H=H, T=T, S=S, hd=hd,
             kernel_ms=round(kernel_ms, 5), plain_ms=round(plain_ms, 5),
             sdpa_ms=round(lib_ms, 5), sdpa_max_abs_err_vs_plain=lib_err,
             **{f"{n}_device_ms": round(d["device_ms_per_call"], 5)
                for n, d in dev_ms.items()},
-            # per launch over the launches the profiler caught (it can
-            # drop one at the window's edge)
-            kernel_device_ms_per_launch=round(
-                dev_ms["kernel"]["device_ms_per_call"]
-                / max(dev_ms["kernel"]["kernels_per_call"], 1e-9), 5),
+            kernel_device_ms_per_launch=round(kernel_dev, 5),
             **{f"{n}_kernels": d["kernels_per_call"]
                for n, d in dev_ms.items()},
-            flops=flops, bytes=n_bytes, bound_bytes_ms=round(b_bytes, 6),
-            bound_ops_ms=round(b_ops, 6), bound_ms=round(bound_ms, 6),
-            bound_share=round(bound_ms / kernel_ms, 4), card=repr(card))
+            flops=bd["flops"], bytes=bd["bytes"],
+            **{k_: round(bd[k_], 6) for k_ in (
+                "bound_bytes_ms", "bound_ops_fp32_ms", "bound_ops_tc_ms",
+                "bound_ms")},
+            bound_by=bd["bound_by"],
+            bound_share_events=round(bd["bound_ms"] / kernel_ms, 4),
+            bound_share_device=round(bd["bound_ms"] / kernel_dev, 4),
+            plan=json.dumps(attention.launch_plan(B, H, T, hd)),
+            card=repr(card))
         if entry is None:               # the serving shape goes in the line
             entry = {
                 "name": "flash_attention",
@@ -652,10 +705,35 @@ def hri_phases(dev, card) -> dict:
                 "max_abs_err": worst,
                 "ms": kernel_ms,
                 "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                "bound_ms": bd["bound_ms"],
+                "bound_by": bd["bound_by"],
                 "library_ms": lib_ms,
             }
+
+    # --- the wrapper's host cost at the serving shape ---------------------------
+    # HOST_CALLS calls with no synchronize in between: host µs per call
+    # (checks, output allocation, ctypes call, launch) beside the CUDA-event
+    # ms per call over the same calls, and the checks alone
+    (q, k, v), m = cases[0][1], cases[0][2]
+    attention.flash_attention(q, k, v, m)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    t = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        attention.flash_attention(q, k, v, m)
+    host_us = 1e6 * (time.perf_counter() - t) / HOST_CALLS
+    ev[1].record()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        attention.launch_args(q, k, v, m)
+    args_us = 1e6 * (time.perf_counter() - t) / HOST_CALLS
+    log("attn_host", case=cases[0][0], calls=HOST_CALLS,
+        host_us_per_call=round(host_us, 3),
+        launch_args_us_per_call=round(args_us, 3),
+        event_ms_per_call=round(ev[0].elapsed_time(ev[1]) / HOST_CALLS, 5),
+        card=repr(card))
     return entry
 
 

@@ -116,9 +116,7 @@ class BatchedQuadrupedEnv:
         self._sel_a = torch.as_tensor(
             etg_model.leg_phase_group(self._etg_cfg.pairing) == 0,
             device=dev)[:, None]                                   # (4,1)
-        w0, b0 = etg_fit.opt_with_points(config.etg)
-        self._w0 = w0.to(dev)
-        self._b0 = b0.to(dev)
+        self._w0, self._b0 = etg_fit.opt_with_points(config.etg, device=dev)
         self._centers = torch.as_tensor(
             oscillator.centers(config.etg).astype(np.float32), device=dev)
         mode = config.train.act_mode

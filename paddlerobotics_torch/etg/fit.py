@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from paddlerobotics_torch.core.config import ETGConfig
+from paddlerobotics_torch.core.device import resolve_device
 from paddlerobotics_torch.etg import oscillator
 
 
@@ -33,8 +34,10 @@ def prior_points(cfg: ETGConfig) -> np.ndarray:
 
 
 def basis_matrix(cfg: ETGConfig, device=None) -> torch.Tensor:
-    """A = V(tₛ) stacked over the six sample times, (6, H)."""
-    t = torch.as_tensor(sample_times(cfg), dtype=torch.float32, device=device)
+    """A = V(tₛ) stacked over the six sample times, (6, H), on
+    ``resolve_device(device)``: the card unless the caller asks for the CPU."""
+    t = torch.as_tensor(sample_times(cfg), dtype=torch.float32,
+                        device=resolve_device(device))
     return oscillator.update(t, cfg)
 
 
@@ -65,10 +68,11 @@ def opt_with_points(cfg: ETGConfig,
     """Fit readout (w, b) so that w·V(tₛ)+b passes through the control points.
 
     Returns (w (3,H) rows [x; 0; z], b (3,)) in float32 — the layout
-    train.py:108-109 produces (y row zero)."""
+    train.py:108-109 produces (y row zero) — on the device of ``points``,
+    or without them on ``resolve_device(device)``."""
     if points is None:
         points = torch.as_tensor(prior_points(cfg), dtype=torch.float32,
-                                 device=device)
+                                 device=resolve_device(device))
     A = basis_matrix(cfg, device=points.device)
     if b0 is None:
         b = torch.mean(points, dim=0)            # (2,)

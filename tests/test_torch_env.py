@@ -172,7 +172,7 @@ def test_etg_residual_and_fit_match_jax():
     jcfg, tcfg = _configs()
     jenv, tenv = JEnv(jcfg, B), BatchedQuadrupedEnv(tcfg, B, device="cpu")
     w_j, b_j = jfit.opt_with_points(jcfg.etg)
-    w_t, b_t = fit.opt_with_points(tcfg.etg)
+    w_t, b_t = fit.opt_with_points(tcfg.etg, device="cpu")
     np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), atol=1e-5)
     np.testing.assert_allclose(b_t.numpy(), np.asarray(b_j), atol=1e-6)
     np.testing.assert_allclose(fit.prior_points(tcfg.etg),

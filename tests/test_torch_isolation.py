@@ -13,6 +13,7 @@ from paddlerobotics_torch import convert
 from paddlerobotics_torch.algos.networks import Actor
 from paddlerobotics_torch.core.config import QuadrupedConfig
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
+from paddlerobotics_torch.etg import fit
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig)
 from paddlerobotics_torch.hri.perception.scene import SceneSensor
@@ -70,6 +71,8 @@ _ENTRY_POINTS = {
     "ProactiveGreetingService": lambda **kw: ProactiveGreetingService(
         ServiceConfig(), None, AttentionController(_SMALL_CTRL, device="cpu"),
         **kw),
+    "opt_with_points": lambda **kw: fit.opt_with_points(
+        QuadrupedConfig().etg, **kw)[0],
 }
 
 
