@@ -13,16 +13,18 @@ to 0 just before it and read just after:
   frames once the window is full, then ``OfflineEvaluator`` at 64
   windows; both against the same path on the plain attention.
 
-Times each kernel beside its bound, its plain version and, for attention,
-``F.scaled_dot_product_attention`` as the library yardstick, and the
-attention wrapper's host cost per call. Imports nothing of JAX.
+Times each kernel by CUDA events and by its device time under
+``torch.profiler``, beside its bounds, its launch plan, its plain version
+and, for attention, ``F.scaled_dot_product_attention`` as the library
+yardstick; and each wrapper's host cost per call. Imports nothing of JAX.
 
     python3 chip_smoke.py
 
 Exits non-zero on any failure and when no CUDA device is present. The
 last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists every kernel with its launches, error and times.
+the line before it lists every kernel with its launches, error and times
+(``ms``: device time per launch).
 """
 
 from __future__ import annotations
@@ -44,6 +46,11 @@ EVAL_STEPS = 200
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+# the FP32 rate when no operation is fused: the FMA peak counts a fused
+# multiply-add as two operations, and the physics kernel is built without
+# FMA contraction (bit equality with its plain version)
+PEAK_FP32_NOFMA_OPS = PEAK_FP32_FLOPS / 2
+TAIL_B = 4093                           # a last block with 3 lanes past B
 # Kernel vs plain: after one control step every env agrees to TOL; after
 # three, contact onsets (the damping term d·vn·[phi > 0] jumps at phi = 0)
 # may let a last-bit difference grow in an env that is just touching down,
@@ -60,7 +67,7 @@ SIZE = 416                              # YOLOv4 input, the serving resolution
 FRAMES = 12                             # 9 fill the window, 3 are decided
 STEADY_FRAMES = 50                      # decided frames of the throughput run
 N_WINDOWS = 64
-HOST_CALLS = 1000                       # wrapper calls of [attn_host]
+HOST_CALLS = 1000                       # wrapper calls of [*_host]
 
 
 def log(phase: str, **kw):
@@ -156,7 +163,7 @@ def main() -> int:
         return torch.as_tensor(scale * rng.standard_normal(shape),
                                dtype=torch.float32, device=dev)
 
-    def start(h_fn, L, spread):
+    def start(h_fn, L, spread, B=B):
         rb = sbatch.init_robot(B, 0.27, hist_len=L, device=dev)
         pos = rb.s.pos.clone()
         if spread:
@@ -177,7 +184,7 @@ def main() -> int:
 
     def env_err(a, b):
         """Per-env max |kernel − plain| over the state and the ring."""
-        e = torch.zeros(B, device=dev)
+        e = torch.zeros_like(a.s.q[0])
         for f in ("pos", "quat", "w", "v", "q", "qd"):
             e = torch.maximum(e, (getattr(a.s, f) - getattr(b.s, f)).abs().amax(0))
         d = (a.obs_hist - b.obs_hist).abs().amax(dim=(0, 1))
@@ -195,26 +202,29 @@ def main() -> int:
         ("up_stair", {}, "up_stair", 2, {}),
         ("obstacle", {}, "obstacle", 2, {}),
         ("balance_beam", {}, "balance_beam", 2, {}),
+        # lanes past B in the last block, through every barrier
+        ("tail", {}, "ground", 40, {"dr": True, "B": TAIL_B}),
     ]
     worst, failed = 0.0, []
     for name, simkw, mode, L, kw in cases:
         cfg = SimConfig(**simkw)
         h_fn = terrain.height_fn(TaskConfig(task_mode=mode, terrain_start=0.0))
-        rb0 = start(h_fn, L, spread=mode != "ground")
-        p = sbatch.BDynParams.default(B, device=dev)
+        Bc = kw.get("B", B)
+        rb0 = start(h_fn, L, spread=mode != "ground", B=Bc)
+        p = sbatch.BDynParams.default(Bc, device=dev)
         if kw.get("dr"):
             gen = torch.Generator(device=dev)
             gen.manual_seed(1)
-            p = randomize.sample_dynamics(B, gen, device=dev)
+            p = randomize.sample_dynamics(Bc, gen, device=dev)
         torque = kw.get("torque", False)
         qd_ref = tau_ff = None
         if kw.get("hybrid"):
-            qd_ref, tau_ff = nrm(12, B, scale=0.3), nrm(12, B, scale=1.5)
+            qd_ref, tau_ff = nrm(12, Bc, scale=0.3), nrm(12, Bc, scale=1.5)
         rk, rp = rb0, rb0
         errs, tau_err, con_mis = [], 0.0, 0
         for _ in range(3):
-            act = (nrm(12, B, scale=5.0) if torque else
-                   (rb0.s.q + nrm(12, B, scale=0.1)).contiguous())
+            act = (nrm(12, Bc, scale=5.0) if torque else
+                   (rb0.s.q + nrm(12, Bc, scale=0.1)).contiguous())
             rk = physics_step.control_step(rk, act, p, cfg, h_fn, torque,
                                            qd_ref=qd_ref, tau_ff=tau_ff)
             rp = sbatch.control_step(rp, act, p, cfg, h_fn, torque,
@@ -232,7 +242,7 @@ def main() -> int:
                      for f in ("pos", "quat", "w", "v", "q", "qd"))
         ok = finite and e1 <= TOL and frac3 <= MAX_DRIFT_FRAC
         worst = max(worst, e1)
-        log("kernel_vs_plain", case=name, L=L, S=min(L, n),
+        log("kernel_vs_plain", case=name, B=Bc, L=L, S=min(L, n),
             max_abs_err_step1=e1, max_abs_err_step3=errs[2].max().item(),
             frac_envs_over_tol_step3=frac3, tau_max_abs_err=tau_err,
             contact_flag_mismatches=con_mis, finite=finite,
@@ -332,7 +342,7 @@ def main() -> int:
                                    round(v, 4))
                                for k, v in prof.items()})
 
-    # --- kernel time beside its bound ------------------------------------------
+    # --- kernel time beside its bounds ------------------------------------------
     sim = SimConfig()
     h_fn = terrain.height_fn(TaskConfig())
     rb = start(h_fn, 2, spread=False)
@@ -344,9 +354,16 @@ def main() -> int:
     ms = [timed(kern, 200, 20), timed(plain, 3, 1), timed(plain, 3, 0),
           timed(kern, 200, 0)]
     kernel_ms, plain_ms = min(ms[0], ms[3]), min(ms[1], ms[2])
+    # device time per launch of the kernel alone (the wrapper's ring update
+    # is left out), over the launches the profiler caught
+    prof = profiler.device_breakdown(kern, reps=20, match="control_step_kernel")
+    kernel_dev = (prof["match_ms_per_call"]
+                  / max(prof["match_launches_per_call"], 1e-9))
 
     # bound: every input read once and every output written once, and the
-    # plain version's elementwise operations on these inputs at FP32 peak
+    # plain version's elementwise operations on these inputs at the FP32
+    # peak (FMA rate: the bound); beside it the same operations unfused,
+    # as this kernel issues them
     ptrs, floats, ints, outs, keep = physics_step.launch_args(
         rb, act, p, sim, h_fn, False, None, None)
     n_in = sum(t.numel() for t in keep[:len(keep) - len(outs)]
@@ -356,12 +373,49 @@ def main() -> int:
     ops = count_ops_per_env(sim, h_fn) * B
     bound_bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     bound_ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bound_ops_nofma_ms = ops / PEAK_FP32_NOFMA_OPS * 1e3
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    ptxas = {instance(k): v
+             for k, v in physics_step.build_info["ptxas"].items()}
     log("kernel_time", B=B, kernel_ms=round(kernel_ms, 5),
+        kernel_device_ms_per_launch=round(kernel_dev, 5),
+        launches_caught_per_call=prof["match_launches_per_call"],
         plain_ms=round(plain_ms, 3), bytes=bytes_moved, ops=ops,
         bound_bytes_ms=round(bound_bytes_ms, 5),
-        bound_ops_ms=round(bound_ops_ms, 5), bound_ms=round(bound_ms, 5),
-        bound_share=round(bound_ms / kernel_ms, 4), library_ms=None,
+        bound_ops_ms=round(bound_ops_ms, 5),
+        bound_ops_nofma_ms=round(bound_ops_nofma_ms, 5),
+        bound_ms=round(bound_ms, 5),
+        bound_share_events=round(bound_ms / kernel_ms, 4),
+        bound_share_device=round(bound_ms / kernel_dev, 4),
+        nofma_share_device=round(bound_ops_nofma_ms / kernel_dev, 4),
+        plan=json.dumps(physics_step.launch_plan(B)),
+        max_registers=max(v.get("registers", 0) for v in ptxas.values()),
+        spill_bytes=sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                        for v in ptxas.values()),
+        library_ms=None, card=repr(card))
+
+    # --- the physics wrapper's host cost ----------------------------------------
+    # HOST_CALLS calls with no synchronize in between: host µs per call
+    # (checks, output allocation, ctypes call, launch, ring update) beside
+    # the CUDA-event ms per call over the same calls, and launch_args alone
+    kern()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    t = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        kern()
+    host_us = 1e6 * (time.perf_counter() - t) / HOST_CALLS
+    ev[1].record()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        physics_step.launch_args(rb, act, p, sim, h_fn, False, None, None)
+    args_us = 1e6 * (time.perf_counter() - t) / HOST_CALLS
+    log("physics_host", B=B, calls=HOST_CALLS,
+        host_us_per_call=round(host_us, 3),
+        launch_args_us_per_call=round(args_us, 3),
+        event_ms_per_call=round(ev[0].elapsed_time(ev[1]) / HOST_CALLS, 5),
         card=repr(card))
 
     kernels = [{
@@ -371,7 +425,7 @@ def main() -> int:
         "replaces": "paddlerobotics_tpu/ops/pallas/physics_step.py:135",
         "launches": launches,
         "max_abs_err": worst,
-        "ms": kernel_ms,
+        "ms": kernel_dev,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
@@ -703,7 +757,7 @@ def hri_phases(dev, card) -> dict:
                 "replaces": "paddlerobotics_tpu/ops/pallas/attention.py:61",
                 "launches": launches,
                 "max_abs_err": worst,
-                "ms": kernel_ms,
+                "ms": kernel_dev,
                 "plain_ms": plain_ms,
                 "bound_ms": bd["bound_ms"],
                 "bound_by": bd["bound_by"],

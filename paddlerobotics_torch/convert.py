@@ -46,18 +46,21 @@ def _t(x, device, dtype=torch.float32) -> torch.Tensor:
                            device=device)
 
 
-def dyn_from_numpy(fields: Mapping, device: str | torch.device = "cpu"
-                   ) -> BDynParams:
-    """BDynParams from numpy arrays under the JAX field names (batch-last)."""
+def dyn_from_numpy(fields: Mapping,
+                   device: str | torch.device | None = None) -> BDynParams:
+    """BDynParams from numpy arrays under the JAX field names (batch-last),
+    on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     return BDynParams(*[_t(fields[f], device) for f in BDynParams._fields])
 
 
-def robot_from_numpy(fields: Mapping, device: str | torch.device = "cpu"
-                     ) -> BRobot:
+def robot_from_numpy(fields: Mapping,
+                     device: str | torch.device | None = None) -> BRobot:
     """BRobot from numpy arrays with the JAX field names: ``pos``, ``quat``,
     ``w``, ``v``, ``q``, ``qd``, ``last_action``, ``tau``, ``foot_pos``,
     ``foot_contact``, ``knee_contact``, ``base_contact``, ``obs_hist`` and
-    ``hist_head``."""
+    ``hist_head``; on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     s = BQuadState(*[_t(fields[f], device)
                      for f in ("pos", "quat", "w", "v", "q", "qd")])
     c = BContact(

@@ -13,15 +13,32 @@
 // sum, no FMA contraction: built with --fmad=false), so on the card the two
 // agree to the last bit wherever the math library calls agree.
 //
-// Design. One thread per env; the whole substep loop runs in registers
-// (per-leg pass-3 data in thread-local arrays). Every (k, B) row is read
-// and written at column b, so a warp's loads and stores are coalesced.
-// Blocks of 32 threads: at B = 4096 that is 128 blocks on 132 SMs, one warp
-// per SM, so occupancy is 1 warp of 64 per SM (1.6%). The terrain is a
-// template parameter; per-leg constants live in __constant__ memory
-// (generated header physics_consts.h). The articulated-inertia pass runs
-// leg by leg into the base's 6x6 sums and keeps per leg only what pass 3
-// reads (U, d, u, the joint trig and velocity-product terms).
+// Design: one warp per leg. A block is 4 warps; warp l is leg l and lane t
+// is env 32 * blockIdx.x + t, so every (k, B) row access is one 128-byte
+// line per warp, and the per-leg __constant__ tables (generated header
+// physics_consts.h) are read at a warp-uniform index, as a broadcast. At
+// B = 4096 the 128 blocks give a warp to 512 of the card's 528 SM
+// sub-partitions. Per substep each warp runs its leg's motor law, poses,
+// velocities, foot and knee contacts and the calf -> thigh -> hip
+// elimination (passes 1 and 2), and hands the leg's 33 floats (articulated
+// inertia and bias force seen from the base) to the other warps through
+// shared memory, double-buffered across substeps so that one
+// __syncthreads() per substep suffices. Every warp then sums the four legs
+// in leg order, ((l0 + l1) + l2) + l3, as the plain version does, and
+// computes the base (contact, bias force, 6x6 Cholesky) and its
+// integration redundantly: the same inputs and instructions give the same
+// bits in every warp, and no second barrier is needed to share a0. Pass 3
+// and the joint integration are per leg again. Warp 0 alone writes the
+// base outputs; each warp writes its own joints' rows of the outputs, of
+// the snapshot rows and of the pd-latency ring, which is rotated in place.
+// Lanes past B compute a copy of env B - 1 and store nothing, so every
+// lane reaches every barrier.
+//
+// The stages are DEV functions: device code under nvcc, plain inline
+// functions under a host compiler. Built with g++ -x c++, the same stages
+// run per env with the legs in a loop and the exchange through an array in
+// leg order (prt_control_step_host), which the CPU tests hold against the
+// JAX package.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM3, 67 TFLOP/s FP32 outside the tensor
 // cores), B = 4096, default config (S = 2, no DR): bytes = 111 input rows
@@ -29,14 +46,17 @@
 // output rows (37 state, 12 tau, 12 foot position, 9 contact, 2 x 31
 // snapshot) x B x 4 bytes = 3.98 MB, 1.19 us; operations = the plain
 // version's 84k elementwise operations per env per control step x 4096 =
-// 344 M, 5.13 us. Operations bound it at ~5.1 us; chip_smoke.py recounts
-// both from each run's inputs and times the kernel beside them.
+// 344 M, 5.13 us at the FMA rate and 10.3 us at the 33.5 T operations/s
+// that FP32 operations issue at when none is fused (this kernel's case).
+// chip_smoke.py recounts them from each run's inputs and times the kernel
+// beside them.
 //
-// Why it is far from that bound: 4096 threads fill one warp slot of 64 on
-// each SM, so the long chain of dependent scalar operations runs at the
-// latency of one warp per SM, with 255 registers and some spills per
-// thread (-Xptxas -v, printed by chip_smoke.py). Splitting an env across
-// threads (one per leg) is later work.
+// chip_smoke.py measured 0.073 ms of device time per launch there (NVIDIA
+// H100 80GB HBM3, 700 W), 7% of that bound, at 225-232 registers and no
+// spills. Why it stays far from the bound: each sub-partition holds one
+// warp, which runs a long chain of dependent scalar operations at their
+// latency with nothing to hide it. Spreading a leg's 3x3 algebra over
+// lanes, for more warps per sub-partition, is the next step.
 
 #include <cstdint>
 #include <cmath>
@@ -391,6 +411,10 @@ HD float point_contact(const float p[3], const float v[3], float radius,
 
 // ---- the control step ---------------------------------------------------------
 
+constexpr int LEGS = 4;
+constexpr int ENVS_PER_BLOCK = 32;  // one env per lane
+constexpr int XCH = 33;             // floats a leg hands to the base
+
 struct Args {
   // inputs, (k, B) row-major with env b at column b
   const float *pos, *quat, *w, *v, *q, *qd, *prev, *act, *qd_ref, *tau_ff;
@@ -403,6 +427,27 @@ struct Args {
   float dt, k, d, fcoef, vs2, cap_foot, cap_knee, cap_base, k_knee, d_knee,
       max_bv, max_jv, pd_w0, pd_w1;
   Terrain terrain;
+};
+
+// The base state; every leg warp of an env keeps and updates its own copy.
+struct Base {
+  float pos[3], quat[4], w[3], v[3];
+};
+
+// Per-env parameters. Each stage reads what it needs where it needs it,
+// so that none of them stays live across the substep loop.
+struct EnvP {
+  float mu, m0, m_h, m_t, m_c, bis[3], g[3], fext[3];
+};
+
+// What the warp of one leg carries across substeps: its three joints.
+struct Leg {
+  float q[3], qd[3], tau[3];
+};
+
+// One leg's foot position and contact flags of a substep.
+struct LegContact {
+  float foot[3], fcon, kcon;
 };
 
 // What pass 3 reads of one leg.
@@ -428,428 +473,473 @@ HD void quat_to_mat(const float q[4], float R[3][3]) {
   R[2][2] = 1.0f - 2.0f * (xx + yy);
 }
 
-// One control step of env b (reads the __constant__ tables: device only).
-template <int MODE>
-DEV void control_step_env(const Args& a, int b) {
-  const int B = a.B;
-#define ROW(ptr, r) (ptr)[(size_t)(r) * B + b]
-  float pos[3], quat[4], w[3], v[3], q[12], qd[12], prev[12], act[12];
+#define ROW(ptr, r) (ptr)[(size_t)(r) * a.B + b]
+
+// The stages below read the __constant__ tables: device code under nvcc.
+
+DEV void load_base(const Args& a, int b, Base& s) {
   for (int i = 0; i < 3; ++i) {
-    pos[i] = ROW(a.pos, i);
-    w[i] = ROW(a.w, i);
-    v[i] = ROW(a.v, i);
+    s.pos[i] = ROW(a.pos, i);
+    s.w[i] = ROW(a.w, i);
+    s.v[i] = ROW(a.v, i);
   }
-  for (int i = 0; i < 4; ++i) quat[i] = ROW(a.quat, i);
-  for (int j = 0; j < 12; ++j) {
-    q[j] = ROW(a.q, j);
-    qd[j] = ROW(a.qd, j);
-    prev[j] = ROW(a.prev, j);
-    act[j] = ROW(a.act, j);
-  }
-  const float bms = a.bms[b];
-  float bis[3], lms[3], g[3], fext[3];
+  for (int i = 0; i < 4; ++i) s.quat[i] = ROW(a.quat, i);
+}
+
+DEV void load_params(const Args& a, int b, EnvP& e) {
+  float lms[3];
   for (int i = 0; i < 3; ++i) {
-    bis[i] = ROW(a.bis, i);
+    e.bis[i] = ROW(a.bis, i);
     lms[i] = ROW(a.lms, i);
-    g[i] = ROW(a.grav, i);
-    fext[i] = ROW(a.fext, i);
+    e.g[i] = ROW(a.grav, i);
+    e.fext[i] = ROW(a.fext, i);
   }
-  const float mu = a.fcoef * a.ff[b];
-  const float m0 = bms * TRUNK_MASS;
-  const float m_h = lms[0] * M_HIP, m_t = lms[1] * M_THIGH,
-              m_c = lms[2] * M_CALF;
-  float calf_com[3], trunk_com[3];
+  e.mu = a.fcoef * a.ff[b];
+  e.m0 = a.bms[b] * TRUNK_MASS;
+  e.m_h = lms[0] * M_HIP;
+  e.m_t = lms[1] * M_THIGH;
+  e.m_c = lms[2] * M_CALF;
+}
+
+DEV void load_leg(const Args& a, int b, int l, Leg& L) {
+  for (int k = 0; k < 3; ++k) {
+    const int j = 3 * l + k;
+    L.q[k] = ROW(a.q, j);
+    L.qd[k] = ROW(a.qd, j);
+  }
+}
+
+// Motor law of leg l's three joints at substep it; ph_base is the physical
+// slot of the newest pd-ring row.
+DEV void leg_motor(const Args& a, int b, int l, int it, int ph_base, Leg& L) {
+  const float t = (float)(it + 1) / (float)a.n;
+  for (int k = 0; k < 3; ++k) {
+    const int j = 3 * l + k;
+    const float prev = ROW(a.prev, j), act = ROW(a.act, j);
+    const float cmd = a.interp ? prev + t * (act - prev) : act;
+    float tj;
+    if (a.torque) {
+      tj = clampf(cmd, -TORQUE_LIMIT, TORQUE_LIMIT);
+    } else {
+      float q_in = L.q[k], qd_in = L.qd[k];
+      if (a.P > 0) {
+        const int s0 = (ph_base + a.i0) % a.P, s1 = (ph_base + a.i1) % a.P;
+        q_in = a.pd_w0 * ROW(a.ph, s0 * 24 + j) +
+               a.pd_w1 * ROW(a.ph, s1 * 24 + j);
+        qd_in = a.pd_w0 * ROW(a.ph, s0 * 24 + 12 + j) +
+                a.pd_w1 * ROW(a.ph, s1 * 24 + 12 + j);
+      }
+      const float qd_err = a.qd_ref ? qd_in - ROW(a.qd_ref, j) : qd_in;
+      tj = (-ROW(a.kp, j)) * (q_in - cmd) - ROW(a.kd, j) * qd_err;
+      if (a.tau_ff) tj = tj + ROW(a.tau_ff, j);
+      tj = clampf(tj, -TORQUE_LIMIT, TORQUE_LIMIT);
+    }
+    L.tau[k] = tj;
+  }
+}
+
+// Base rotation and world velocities.
+DEV void base_frame(const Base& s, float Rb[3][3], float wW[3], float vW[3]) {
+  quat_to_mat(s.quat, Rb);
+  mv(Rb, s.w, wW);
+  mv(Rb, s.v, vW);
+}
+
+// Passes 1 and 2 of leg l: poses, velocities, foot and knee contacts, link
+// forces, calf -> thigh -> hip elimination. Fills C with the foot and its
+// contacts, P with what pass 3 reads and x with the leg's articulated
+// inertia and bias force at the base: A, H, M row-major (27), then pn (3)
+// and pf (3).
+template <int MODE>
+DEV void leg_pass12(const Args& a, int b, int l, const Base& s,
+                    const float Rb[3][3], const float wW[3], const float vW[3],
+                    const Leg& Lg, LegContact& C, LegP3& L, float x[XCH]) {
+  EnvP e;
+  load_params(a, b, e);
+  for (int k = 0; k < 3; ++k) {
+    L.c[k] = cosf(Lg.q[k]);
+    L.s[k] = sinf(Lg.q[k]);
+  }
+  float hip_r[3], thigh_r[3], hip_com[3], thigh_com[3], calf_com[3];
+  float hip_i[3][3], thigh_i[3][3], hip_cct[3][3], thigh_cct[3][3];
+  float hip_sk[3][3], thigh_sk[3][3];
   for (int i = 0; i < 3; ++i) {
+    hip_r[i] = HIP_R[i][l];
+    thigh_r[i] = THIGH_R[i][l];
+    hip_com[i] = HIP_COM[i][l];
+    thigh_com[i] = THIGH_COM[i][l];
     calf_com[i] = CALF_COM[i];
-    trunk_com[i] = TRUNK_COM[i];
+    for (int j = 0; j < 3; ++j) {
+      hip_i[i][j] = HIP_I[i][j][l];
+      thigh_i[i][j] = THIGH_I[i][j][l];
+      hip_cct[i][j] = HIP_CCT[i][j][l];
+      thigh_cct[i][j] = THIGH_CCT[i][j][l];
+    }
   }
+  skew(hip_com, hip_sk);
+  skew(thigh_com, thigh_sk);
   const float calf_r[3] = {0.0f, 0.0f, CALF_RZ};
 
-  float tau[12], foot[4][3], fcon[4], kcon[4], bcon = 0.0f;
-  int ph_base = 0;  // physical slot of the newest pd-ring row
+  // poses
+  float Rh[3][3], Rt[3][3], Rc[3][3], oh[3], ot[3], oc[3], of[3], t3[3];
+  mm_rot<0>(Rb, L.c[0], L.s[0], Rh);
+  mv(Rb, hip_r, t3);
+  for (int i = 0; i < 3; ++i) oh[i] = s.pos[i] + t3[i];
+  mm_rot<1>(Rh, L.c[1], L.s[1], Rt);
+  mv(Rh, thigh_r, t3);
+  for (int i = 0; i < 3; ++i) ot[i] = oh[i] + t3[i];
+  mm_rot<1>(Rt, L.c[2], L.s[2], Rc);
+  for (int i = 0; i < 3; ++i) oc[i] = ot[i] + Rt[i][2] * CALF_RZ;
+  for (int i = 0; i < 3; ++i) of[i] = oc[i] + Rc[i][2] * FOOT_RZ;
 
-#pragma unroll 1
-  for (int it = 0; it < a.n; ++it) {
-    // --- motor law
-    const float t = (float)(it + 1) / (float)a.n;
-    for (int j = 0; j < 12; ++j) {
-      const float cmd = a.interp ? prev[j] + t * (act[j] - prev[j]) : act[j];
-      float tj;
-      if (a.torque) {
-        tj = clampf(cmd, -TORQUE_LIMIT, TORQUE_LIMIT);
-      } else {
-        float q_in = q[j], qd_in = qd[j];
-        if (a.P > 0) {
-          const int s0 = (ph_base + a.i0) % a.P, s1 = (ph_base + a.i1) % a.P;
-          q_in = a.pd_w0 * ROW(a.ph, s0 * 24 + j) +
-                 a.pd_w1 * ROW(a.ph, s1 * 24 + j);
-          qd_in = a.pd_w0 * ROW(a.ph, s0 * 24 + 12 + j) +
-                  a.pd_w1 * ROW(a.ph, s1 * 24 + 12 + j);
-        }
-        const float qd_err = a.qd_ref ? qd_in - ROW(a.qd_ref, j) : qd_in;
-        tj = (-ROW(a.kp, j)) * (q_in - cmd) - ROW(a.kd, j) * qd_err;
-        if (a.tau_ff) tj = tj + ROW(a.tau_ff, j);
-        tj = clampf(tj, -TORQUE_LIMIT, TORQUE_LIMIT);
-      }
-      tau[j] = tj;
-    }
+  // velocities (pass 1)
+  const float qd1 = Lg.qd[0], qd2 = Lg.qd[1], qd3 = Lg.qd[2];
+  float w1[3], u1[3], w2[3], u2[3], w3[3], u3[3];
+  xform_motion<0>(L.c[0], L.s[0], hip_r, s.w, s.v, w1, u1);
+  w1[0] = w1[0] + qd1;
+  L.cw[0][0] = w1[2] * qd1;  L.cw[0][1] = -(w1[1] * qd1);
+  L.cu[0][0] = u1[2] * qd1;  L.cu[0][1] = -(u1[1] * qd1);
+  xform_motion<1>(L.c[1], L.s[1], thigh_r, w1, u1, w2, u2);
+  w2[1] = w2[1] + qd2;
+  L.cw[1][0] = -(w2[2] * qd2);  L.cw[1][1] = w2[0] * qd2;
+  L.cu[1][0] = -(u2[2] * qd2);  L.cu[1][1] = u2[0] * qd2;
+  {
+    // calf joint on the thigh's z axis: r×w = (−(z w1), z w0, 0)
+    float t[3];
+    t[0] = u2[0] - (-(CALF_RZ * w2[1]));
+    t[1] = u2[1] - CALF_RZ * w2[0];
+    t[2] = u2[2];
+    rot_mv<1>(L.c[2], -L.s[2], w2, w3);
+    rot_mv<1>(L.c[2], -L.s[2], t, u3);
+  }
+  w3[1] = w3[1] + qd3;
+  L.cw[2][0] = -(w3[2] * qd3);  L.cw[2][1] = w3[0] * qd3;
+  L.cu[2][0] = -(u3[2] * qd3);  L.cu[2][1] = u3[0] * qd3;
 
-    // --- base pose and world velocities
-    float Rb[3][3], wW[3], vW[3];
-    quat_to_mat(quat, Rb);
-    mv(Rb, w, wW);
-    mv(Rb, v, vW);
+  // contacts: foot (calf tip) and knee (calf origin)
+  float vf[3], ff3[3], kf3[3];
+  {
+    float t[3];
+    t[0] = u3[0] + w3[1] * FOOT_RZ;
+    t[1] = u3[1] + (-(w3[0] * FOOT_RZ));
+    t[2] = u3[2];
+    mv(Rc, t, vf);
+  }
+  const float fphi = point_contact<MODE>(of, vf, FOOT_RADIUS, a.k, a.d, e.mu,
+                                         a.vs2, a.cap_foot, a.terrain, ff3);
+  float relk[3], vk[3];
+  for (int i = 0; i < 3; ++i) relk[i] = oc[i] - s.pos[i];
+  cross(wW, relk, vk);
+  for (int i = 0; i < 3; ++i) vk[i] = vW[i] + vk[i];
+  const float kphi = point_contact<MODE>(oc, vk, 0.02f, a.k_knee, a.d_knee,
+                                         e.mu, a.vs2, a.cap_knee, a.terrain,
+                                         kf3);
+  for (int i = 0; i < 3; ++i) C.foot[i] = of[i];
+  C.fcon = fphi > 0.0f ? 1.0f : 0.0f;
+  C.kcon = kphi > 0.0f ? 1.0f : 0.0f;
 
-    // --- pass 1 + 2 per leg, summed into the base
-    float sA[3][3] = {}, sH[3][3] = {}, sM[3][3] = {}, spn[3] = {},
-          spf[3] = {};
-    LegP3 P3[4];
-#pragma unroll 1
-    for (int l = 0; l < 4; ++l) {
-      LegP3& L = P3[l];
-      for (int k = 0; k < 3; ++k) {
-        L.c[k] = cosf(q[3 * l + k]);
-        L.s[k] = sinf(q[3 * l + k]);
-      }
-      float hip_r[3], thigh_r[3], hip_com[3], thigh_com[3];
-      float hip_i[3][3], thigh_i[3][3], hip_cct[3][3], thigh_cct[3][3];
-      float hip_sk[3][3], thigh_sk[3][3];
-      for (int i = 0; i < 3; ++i) {
-        hip_r[i] = HIP_R[i][l];
-        thigh_r[i] = THIGH_R[i][l];
-        hip_com[i] = HIP_COM[i][l];
-        thigh_com[i] = THIGH_COM[i][l];
-        for (int j = 0; j < 3; ++j) {
-          hip_i[i][j] = HIP_I[i][j][l];
-          thigh_i[i][j] = THIGH_I[i][j][l];
-          hip_cct[i][j] = HIP_CCT[i][j][l];
-          thigh_cct[i][j] = THIGH_CCT[i][j][l];
-        }
-      }
-      skew(hip_com, hip_sk);
-      skew(thigh_com, thigh_sk);
+  // external forces on the three links
+  float n1f[3], f1f[3], n2f[3], f2f[3], n3f[3], f3f[3], nc[3], fc[3];
+  grav(Rh, oh, e.m_h, hip_com, e.g, n1f, f1f);
+  grav(Rt, ot, e.m_t, thigh_com, e.g, n2f, f2f);
+  grav(Rc, oc, e.m_c, calf_com, e.g, n3f, f3f);
+  ext_force_local(Rc, oc, of, ff3, nc, fc);
+  vadd(n3f, nc);
+  vadd(f3f, fc);
+  // the knee force acts at the calf origin: no moment
+  mtv(Rc, kf3, fc);
+  vadd(f3f, fc);
 
-      // poses
-      float Rh[3][3], Rt[3][3], Rc[3][3], oh[3], ot[3], oc[3], of[3], t3[3];
-      mm_rot<0>(Rb, L.c[0], L.s[0], Rh);
-      mv(Rb, hip_r, t3);
-      for (int i = 0; i < 3; ++i) oh[i] = pos[i] + t3[i];
-      mm_rot<1>(Rh, L.c[1], L.s[1], Rt);
-      mv(Rh, thigh_r, t3);
-      for (int i = 0; i < 3; ++i) ot[i] = oh[i] + t3[i];
-      mm_rot<1>(Rt, L.c[2], L.s[2], Rc);
-      for (int i = 0; i < 3; ++i) oc[i] = ot[i] + Rt[i][2] * CALF_RZ;
-      for (int i = 0; i < 3; ++i) of[i] = oc[i] + Rc[i][2] * FOOT_RZ;
-
-      // velocities (pass 1)
-      const float qd1 = qd[3 * l], qd2 = qd[3 * l + 1], qd3 = qd[3 * l + 2];
-      float w1[3], u1[3], w2[3], u2[3], w3[3], u3[3];
-      xform_motion<0>(L.c[0], L.s[0], hip_r, w, v, w1, u1);
-      w1[0] = w1[0] + qd1;
-      L.cw[0][0] = w1[2] * qd1;  L.cw[0][1] = -(w1[1] * qd1);
-      L.cu[0][0] = u1[2] * qd1;  L.cu[0][1] = -(u1[1] * qd1);
-      xform_motion<1>(L.c[1], L.s[1], thigh_r, w1, u1, w2, u2);
-      w2[1] = w2[1] + qd2;
-      L.cw[1][0] = -(w2[2] * qd2);  L.cw[1][1] = w2[0] * qd2;
-      L.cu[1][0] = -(u2[2] * qd2);  L.cu[1][1] = u2[0] * qd2;
-      {
-        // calf joint on the thigh's z axis: r×w = (−(z w1), z w0, 0)
-        float t[3];
-        t[0] = u2[0] - (-(CALF_RZ * w2[1]));
-        t[1] = u2[1] - CALF_RZ * w2[0];
-        t[2] = u2[2];
-        rot_mv<1>(L.c[2], -L.s[2], w2, w3);
-        rot_mv<1>(L.c[2], -L.s[2], t, u3);
-      }
-      w3[1] = w3[1] + qd3;
-      L.cw[2][0] = -(w3[2] * qd3);  L.cw[2][1] = w3[0] * qd3;
-      L.cu[2][0] = -(u3[2] * qd3);  L.cu[2][1] = u3[0] * qd3;
-
-      // contacts: foot (calf tip) and knee (calf origin)
-      float vf[3], ff3[3], kf3[3];
-      {
-        float t[3];
-        t[0] = u3[0] + w3[1] * FOOT_RZ;
-        t[1] = u3[1] + (-(w3[0] * FOOT_RZ));
-        t[2] = u3[2];
-        mv(Rc, t, vf);
-      }
-      const float fphi = point_contact<MODE>(of, vf, FOOT_RADIUS, a.k, a.d,
-                                             mu, a.vs2, a.cap_foot,
-                                             a.terrain, ff3);
-      float relk[3], vk[3];
-      for (int i = 0; i < 3; ++i) relk[i] = oc[i] - pos[i];
-      cross(wW, relk, vk);
-      for (int i = 0; i < 3; ++i) vk[i] = vW[i] + vk[i];
-      const float kphi = point_contact<MODE>(oc, vk, 0.02f, a.k_knee,
-                                             a.d_knee, mu, a.vs2,
-                                             a.cap_knee, a.terrain, kf3);
-      for (int i = 0; i < 3; ++i) foot[l][i] = of[i];
-      fcon[l] = fphi > 0.0f ? 1.0f : 0.0f;
-      kcon[l] = kphi > 0.0f ? 1.0f : 0.0f;
-
-      // external forces on the three links
-      float n1f[3], f1f[3], n2f[3], f2f[3], n3f[3], f3f[3], nc[3], fc[3];
-      grav(Rh, oh, m_h, hip_com, g, n1f, f1f);
-      grav(Rt, ot, m_t, thigh_com, g, n2f, f2f);
-      grav(Rc, oc, m_c, calf_com, g, n3f, f3f);
-      ext_force_local(Rc, oc, of, ff3, nc, fc);
-      vadd(n3f, nc);
-      vadd(f3f, fc);
-      // the knee force acts at the calf origin: no moment
-      mtv(Rc, kf3, fc);
-      vadd(f3f, fc);
-
-      // pass 2: calf → thigh → hip
-      const float scl[3] = {ROW(a.lis, 3 * l), ROW(a.lis, 3 * l + 1),
-                            ROW(a.lis, 3 * l + 2)};
-      float cw[3], cu[3];
-      Ine I3, I2, I1;
-      float pn[3], pf[3], bn[3], bf[3];
-      {
-        float calf_i[3][3], calf_cct[3][3], calf_sk[3][3];
-        for (int i = 0; i < 3; ++i)
-          for (int j = 0; j < 3; ++j) {
-            calf_i[i][j] = CALF_I[i][j];
-            calf_cct[i][j] = CALF_CCT[i][j];
-            calf_sk[i][j] = CALF_SKEW[i][j];
-          }
-        link_inertia(calf_i, scl[2], m_c, calf_cct, calf_sk, I3);
-      }
-      bias_force(I3, w3, u3, n3f, f3f, pn, pf);
-      cw[0] = L.cw[2][0]; cw[1] = 0.0f; cw[2] = L.cw[2][1];
-      cu[0] = L.cu[2][0]; cu[1] = 0.0f; cu[2] = L.cu[2][1];
-      eliminate<1>(I3, pn, pf, tau[3 * l + 2], cw, cu, L.J[2]);
-      xform_inertia_to_parent<1>(L.c[2], L.s[2], calf_r, I3);
-      xform_force_to_parent<1>(L.c[2], L.s[2], calf_r, pn, pf);
-
-      link_inertia(thigh_i, scl[1], m_t, thigh_cct, thigh_sk, I2);
-      bias_force(I2, w2, u2, n2f, f2f, bn, bf);
-      madd(I2.A, I3.A);
-      madd(I2.H, I3.H);
-      madd(I2.M, I3.M);
-      for (int i = 0; i < 3; ++i) {
-        pn[i] = bn[i] + pn[i];
-        pf[i] = bf[i] + pf[i];
-      }
-      cw[0] = L.cw[1][0]; cw[1] = 0.0f; cw[2] = L.cw[1][1];
-      cu[0] = L.cu[1][0]; cu[1] = 0.0f; cu[2] = L.cu[1][1];
-      eliminate<1>(I2, pn, pf, tau[3 * l + 1], cw, cu, L.J[1]);
-      xform_inertia_to_parent<1>(L.c[1], L.s[1], thigh_r, I2);
-      xform_force_to_parent<1>(L.c[1], L.s[1], thigh_r, pn, pf);
-
-      link_inertia(hip_i, scl[0], m_h, hip_cct, hip_sk, I1);
-      bias_force(I1, w1, u1, n1f, f1f, bn, bf);
-      madd(I1.A, I2.A);
-      madd(I1.H, I2.H);
-      madd(I1.M, I2.M);
-      for (int i = 0; i < 3; ++i) {
-        pn[i] = bn[i] + pn[i];
-        pf[i] = bf[i] + pf[i];
-      }
-      cw[0] = 0.0f; cw[1] = L.cw[0][0]; cw[2] = L.cw[0][1];
-      cu[0] = 0.0f; cu[1] = L.cu[0][0]; cu[2] = L.cu[0][1];
-      eliminate<0>(I1, pn, pf, tau[3 * l], cw, cu, L.J[0]);
-      xform_inertia_to_parent<0>(L.c[0], L.s[0], hip_r, I1);
-      xform_force_to_parent<0>(L.c[0], L.s[0], hip_r, pn, pf);
-
-      // legs summed into the base in leg order
-      madd(sA, I1.A);
-      madd(sH, I1.H);
-      madd(sM, I1.M);
-      vadd(spn, pn);
-      vadd(spf, pf);
-    }
-
-    // --- base: contact, external forces, 6x6 solve
-    float bfv[3], n0f[3], f0f[3], t3[3];
-    {
-      const float bp[3] = {pos[0], pos[1], pos[2] - TRUNK_HALF_HEIGHT};
-      const float bphi = point_contact<MODE>(bp, vW, 0.0f, a.k, a.d, mu,
-                                             a.vs2, a.cap_base, a.terrain,
-                                             bfv);
-      bcon = bphi > 0.0f ? 1.0f : 0.0f;
-    }
-    grav(Rb, pos, m0, trunk_com, g, n0f, f0f);
-    for (int i = 0; i < 3; ++i) bfv[i] = bfv[i] + fext[i];
-    // the base force acts at the base origin: no moment
-    mtv(Rb, bfv, t3);
-    vadd(f0f, t3);
-
-    Ine I0;
-    {
-      float trunk_i[3][3], trunk_cct[3][3], trunk_sk[3][3];
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) {
-          trunk_i[i][j] = TRUNK_I[i][j] * bis[i];
-          trunk_cct[i][j] = TRUNK_CCT[i][j];
-          trunk_sk[i][j] = TRUNK_SKEW[i][j];
-        }
-      link_inertia(trunk_i, 1.0f, m0, trunk_cct, trunk_sk, I0);
-    }
-    float pn0[3], pf0[3];
-    bias_force(I0, w, v, n0f, f0f, pn0, pf0);
-    vadd(pn0, spn);
-    vadd(pf0, spf);
-    madd(I0.A, sA);
-    madd(I0.H, sH);
-    madd(I0.M, sM);
-
-    float M6[6][6], rhs[6], a0[6];
+  // pass 2: calf → thigh → hip
+  const float scl[3] = {ROW(a.lis, 3 * l), ROW(a.lis, 3 * l + 1),
+                        ROW(a.lis, 3 * l + 2)};
+  float cw[3], cu[3];
+  Ine I3, I2, I1;
+  float pn[3], pf[3], bn[3], bf[3];
+  {
+    float calf_i[3][3], calf_cct[3][3], calf_sk[3][3];
     for (int i = 0; i < 3; ++i)
       for (int j = 0; j < 3; ++j) {
-        M6[i][j] = I0.A[i][j];
-        M6[i][3 + j] = I0.H[i][j];
-        M6[3 + i][j] = I0.H[j][i];
-        M6[3 + i][3 + j] = I0.M[i][j];
+        calf_i[i][j] = CALF_I[i][j];
+        calf_cct[i][j] = CALF_CCT[i][j];
+        calf_sk[i][j] = CALF_SKEW[i][j];
       }
-    for (int i = 0; i < 3; ++i) {
-      rhs[i] = -pn0[i];
-      rhs[3 + i] = -pf0[i];
-    }
-    {
-      // unrolled Cholesky (smallalg.cholesky_solve)
-      float Lc[6][6], y[6];
-      for (int i = 0; i < 6; ++i)
-        for (int j = 0; j <= i; ++j) {
-          float s = M6[i][j];
-          for (int k = 0; k < j; ++k) s = s - Lc[i][k] * Lc[j][k];
-          Lc[i][j] = i == j ? sqrtf(s) : s / Lc[j][j];
-        }
-      for (int i = 0; i < 6; ++i) {
-        float s = rhs[i];
-        for (int k = 0; k < i; ++k) s = s - Lc[i][k] * y[k];
-        y[i] = s / Lc[i][i];
-      }
-      for (int i = 5; i >= 0; --i) {
-        float s = y[i];
-        for (int k = i + 1; k < 6; ++k) s = s - Lc[k][i] * a0[k];
-        a0[i] = s / Lc[i][i];
-      }
-    }
-
-    // --- pass 3: joint accelerations, outward
-    float qdd[12];
-#pragma unroll 1
-    for (int l = 0; l < 4; ++l) {
-      const LegP3& L = P3[l];
-      float hip_r[3], thigh_r[3];
-      for (int i = 0; i < 3; ++i) {
-        hip_r[i] = HIP_R[i][l];
-        thigh_r[i] = THIGH_R[i][l];
-      }
-      float aw[3] = {a0[0], a0[1], a0[2]}, au[3] = {a0[3], a0[4], a0[5]};
-      float awc[3], auc[3];
-      // hip (x axis)
-      xform_motion<0>(L.c[0], L.s[0], hip_r, aw, au, awc, auc);
-      awc[1] = awc[1] + L.cw[0][0];  awc[2] = awc[2] + L.cw[0][1];
-      auc[1] = auc[1] + L.cu[0][0];  auc[2] = auc[2] + L.cu[0][1];
-      float qa = ((L.J[0].uu - dot3(L.J[0].Ua, awc)) - dot3(L.J[0].Ul, auc)) /
-                 L.J[0].d;
-      awc[0] = awc[0] + qa;
-      qdd[3 * l] = qa;
-      // thigh (y axis)
-      xform_motion<1>(L.c[1], L.s[1], thigh_r, awc, auc, aw, au);
-      aw[0] = aw[0] + L.cw[1][0];  aw[2] = aw[2] + L.cw[1][1];
-      au[0] = au[0] + L.cu[1][0];  au[2] = au[2] + L.cu[1][1];
-      qa = ((L.J[1].uu - dot3(L.J[1].Ua, aw)) - dot3(L.J[1].Ul, au)) /
-           L.J[1].d;
-      aw[1] = aw[1] + qa;
-      qdd[3 * l + 1] = qa;
-      // calf (y axis, joint on the thigh's z axis)
-      xform_motion<1>(L.c[2], L.s[2], calf_r, aw, au, awc, auc);
-      awc[0] = awc[0] + L.cw[2][0];  awc[2] = awc[2] + L.cw[2][1];
-      auc[0] = auc[0] + L.cu[2][0];  auc[2] = auc[2] + L.cu[2][1];
-      qa = ((L.J[2].uu - dot3(L.J[2].Ua, awc)) - dot3(L.J[2].Ul, auc)) /
-           L.J[2].d;
-      qdd[3 * l + 2] = qa;
-    }
-
-    // --- semi-implicit Euler, exp-map quaternion
-    const float dt = a.dt;
-    float wn[3], vn[3];
-    for (int i = 0; i < 3; ++i) {
-      wn[i] = clampf(w[i] + dt * a0[i], -a.max_bv, a.max_bv);
-      vn[i] = clampf(v[i] + dt * a0[3 + i], -a.max_bv, a.max_bv);
-    }
-    for (int j = 0; j < 12; ++j) {
-      qd[j] = clampf(qd[j] + dt * qdd[j], -a.max_jv, a.max_jv);
-      q[j] = q[j] + dt * qd[j];
-    }
-    if (a.on_rack) {
-      // base welded in place (minitaur.py:106, 418)
-      for (int i = 0; i < 3; ++i) {
-        w[i] = 0.0f;
-        v[i] = 0.0f;
-      }
-    } else {
-      float vw[3], ww[3];
-      mv(Rb, vn, vw);
-      for (int i = 0; i < 3; ++i) pos[i] = pos[i] + dt * vw[i];
-      mv(Rb, wn, ww);
-      const float ang =
-          sqrtf(((ww[0] * ww[0] + ww[1] * ww[1]) + ww[2] * ww[2]) + 1e-16f);
-      const float half = (0.5f * ang) * dt;
-      const float sc = sinf(half) / ang;
-      const float dqw = cosf(half), dqx = sc * ww[0], dqy = sc * ww[1],
-                  dqz = sc * ww[2];
-      const float qw = quat[0], qx = quat[1], qy = quat[2], qz = quat[3];
-      const float nw = ((dqw * qw - dqx * qx) - dqy * qy) - dqz * qz;
-      const float nx = ((dqw * qx + dqx * qw) + dqy * qz) - dqz * qy;
-      const float ny = ((dqw * qy - dqx * qz) + dqy * qw) + dqz * qx;
-      const float nz = ((dqw * qz + dqx * qy) - dqy * qx) + dqz * qw;
-      const float inv =
-          rsq(((nw * nw + nx * nx) + ny * ny) + nz * nz);
-      quat[0] = nw * inv;
-      quat[1] = nx * inv;
-      quat[2] = ny * inv;
-      quat[3] = nz * inv;
-      for (int i = 0; i < 3; ++i) {
-        w[i] = wn[i];
-        v[i] = vn[i];
-      }
-    }
-
-    // --- newest S snapshot rows [q | qd | quat | w]
-    const int r = it - (a.n - a.S);
-    if (r >= 0) {
-      float* row = a.o_stack + (size_t)r * 31 * B;
-      for (int j = 0; j < 12; ++j) {
-        row[(size_t)j * B + b] = q[j];
-        row[(size_t)(12 + j) * B + b] = qd[j];
-      }
-      for (int i = 0; i < 4; ++i) row[(size_t)(24 + i) * B + b] = quat[i];
-      for (int i = 0; i < 3; ++i) row[(size_t)(28 + i) * B + b] = w[i];
-    }
-    // --- pd-latency ring: the new (q, qd) becomes the newest row
-    if (a.P > 0) {
-      ph_base = (ph_base + a.P - 1) % a.P;
-      for (int j = 0; j < 12; ++j) {
-        ROW(a.ph, ph_base * 24 + j) = q[j];
-        ROW(a.ph, ph_base * 24 + 12 + j) = qd[j];
-      }
-    }
+    link_inertia(calf_i, scl[2], e.m_c, calf_cct, calf_sk, I3);
   }
+  bias_force(I3, w3, u3, n3f, f3f, pn, pf);
+  cw[0] = L.cw[2][0]; cw[1] = 0.0f; cw[2] = L.cw[2][1];
+  cu[0] = L.cu[2][0]; cu[1] = 0.0f; cu[2] = L.cu[2][1];
+  eliminate<1>(I3, pn, pf, Lg.tau[2], cw, cu, L.J[2]);
+  xform_inertia_to_parent<1>(L.c[2], L.s[2], calf_r, I3);
+  xform_force_to_parent<1>(L.c[2], L.s[2], calf_r, pn, pf);
+
+  link_inertia(thigh_i, scl[1], e.m_t, thigh_cct, thigh_sk, I2);
+  bias_force(I2, w2, u2, n2f, f2f, bn, bf);
+  madd(I2.A, I3.A);
+  madd(I2.H, I3.H);
+  madd(I2.M, I3.M);
+  for (int i = 0; i < 3; ++i) {
+    pn[i] = bn[i] + pn[i];
+    pf[i] = bf[i] + pf[i];
+  }
+  cw[0] = L.cw[1][0]; cw[1] = 0.0f; cw[2] = L.cw[1][1];
+  cu[0] = L.cu[1][0]; cu[1] = 0.0f; cu[2] = L.cu[1][1];
+  eliminate<1>(I2, pn, pf, Lg.tau[1], cw, cu, L.J[1]);
+  xform_inertia_to_parent<1>(L.c[1], L.s[1], thigh_r, I2);
+  xform_force_to_parent<1>(L.c[1], L.s[1], thigh_r, pn, pf);
+
+  link_inertia(hip_i, scl[0], e.m_h, hip_cct, hip_sk, I1);
+  bias_force(I1, w1, u1, n1f, f1f, bn, bf);
+  madd(I1.A, I2.A);
+  madd(I1.H, I2.H);
+  madd(I1.M, I2.M);
+  for (int i = 0; i < 3; ++i) {
+    pn[i] = bn[i] + pn[i];
+    pf[i] = bf[i] + pf[i];
+  }
+  cw[0] = 0.0f; cw[1] = L.cw[0][0]; cw[2] = L.cw[0][1];
+  cu[0] = 0.0f; cu[1] = L.cu[0][0]; cu[2] = L.cu[0][1];
+  eliminate<0>(I1, pn, pf, Lg.tau[0], cw, cu, L.J[0]);
+  xform_inertia_to_parent<0>(L.c[0], L.s[0], hip_r, I1);
+  xform_force_to_parent<0>(L.c[0], L.s[0], hip_r, pn, pf);
 
   for (int i = 0; i < 3; ++i) {
-    ROW(a.o_pos, i) = pos[i];
-    ROW(a.o_w, i) = w[i];
-    ROW(a.o_v, i) = v[i];
+    for (int j = 0; j < 3; ++j) {
+      x[3 * i + j] = I1.A[i][j];
+      x[9 + 3 * i + j] = I1.H[i][j];
+      x[18 + 3 * i + j] = I1.M[i][j];
+    }
+    x[27 + i] = pn[i];
+    x[30 + i] = pf[i];
   }
-  for (int i = 0; i < 4; ++i) ROW(a.o_quat, i) = quat[i];
-  for (int j = 0; j < 12; ++j) {
-    ROW(a.o_q, j) = q[j];
-    ROW(a.o_qd, j) = qd[j];
-    ROW(a.o_tau, j) = tau[j];
-  }
-  for (int l = 0; l < 4; ++l) {
-    for (int i = 0; i < 3; ++i) ROW(a.o_foot, i * 4 + l) = foot[l][i];
-    ROW(a.o_fcon, l) = fcon[l];
-    ROW(a.o_kcon, l) = kcon[l];
-  }
-  a.o_bcon[b] = bcon;
-#undef ROW
 }
+
+// The base: the four legs' x summed in leg order (leg l's entry k at
+// legs[l * leg_stride + k * k_stride]), contact, external forces, 6x6
+// solve for a0. Returns the base contact flag.
+template <int MODE>
+DEV float base_solve(const Args& a, int b, const Base& s,
+                     const float Rb[3][3], const float vW[3],
+                     const float* legs, int leg_stride, int k_stride,
+                     float a0[6]) {
+  float sum[XCH];
+  for (int k = 0; k < XCH; ++k) {
+    const float* xk = legs + k * k_stride;
+    sum[k] = ((xk[0] + xk[leg_stride]) + xk[2 * leg_stride]) +
+             xk[3 * leg_stride];
+  }
+
+  EnvP e;
+  load_params(a, b, e);
+  float bfv[3], n0f[3], f0f[3], t3[3], trunk_com[3];
+  float bcon;
+  {
+    const float bp[3] = {s.pos[0], s.pos[1], s.pos[2] - TRUNK_HALF_HEIGHT};
+    const float bphi = point_contact<MODE>(bp, vW, 0.0f, a.k, a.d, e.mu,
+                                           a.vs2, a.cap_base, a.terrain, bfv);
+    bcon = bphi > 0.0f ? 1.0f : 0.0f;
+  }
+  for (int i = 0; i < 3; ++i) trunk_com[i] = TRUNK_COM[i];
+  grav(Rb, s.pos, e.m0, trunk_com, e.g, n0f, f0f);
+  for (int i = 0; i < 3; ++i) bfv[i] = bfv[i] + e.fext[i];
+  // the base force acts at the base origin: no moment
+  mtv(Rb, bfv, t3);
+  vadd(f0f, t3);
+
+  Ine I0;
+  {
+    float trunk_i[3][3], trunk_cct[3][3], trunk_sk[3][3];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        trunk_i[i][j] = TRUNK_I[i][j] * e.bis[i];
+        trunk_cct[i][j] = TRUNK_CCT[i][j];
+        trunk_sk[i][j] = TRUNK_SKEW[i][j];
+      }
+    link_inertia(trunk_i, 1.0f, e.m0, trunk_cct, trunk_sk, I0);
+  }
+  float pn0[3], pf0[3];
+  bias_force(I0, s.w, s.v, n0f, f0f, pn0, pf0);
+  for (int i = 0; i < 3; ++i) {
+    pn0[i] = pn0[i] + sum[27 + i];
+    pf0[i] = pf0[i] + sum[30 + i];
+    for (int j = 0; j < 3; ++j) {
+      I0.A[i][j] = I0.A[i][j] + sum[3 * i + j];
+      I0.H[i][j] = I0.H[i][j] + sum[9 + 3 * i + j];
+      I0.M[i][j] = I0.M[i][j] + sum[18 + 3 * i + j];
+    }
+  }
+
+  float M6[6][6], rhs[6];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      M6[i][j] = I0.A[i][j];
+      M6[i][3 + j] = I0.H[i][j];
+      M6[3 + i][j] = I0.H[j][i];
+      M6[3 + i][3 + j] = I0.M[i][j];
+    }
+  for (int i = 0; i < 3; ++i) {
+    rhs[i] = -pn0[i];
+    rhs[3 + i] = -pf0[i];
+  }
+  // unrolled Cholesky (smallalg.cholesky_solve)
+  float Lc[6][6], y[6];
+  for (int i = 0; i < 6; ++i)
+    for (int j = 0; j <= i; ++j) {
+      float sij = M6[i][j];
+      for (int k = 0; k < j; ++k) sij = sij - Lc[i][k] * Lc[j][k];
+      Lc[i][j] = i == j ? sqrtf(sij) : sij / Lc[j][j];
+    }
+  for (int i = 0; i < 6; ++i) {
+    float si = rhs[i];
+    for (int k = 0; k < i; ++k) si = si - Lc[i][k] * y[k];
+    y[i] = si / Lc[i][i];
+  }
+  for (int i = 5; i >= 0; --i) {
+    float si = y[i];
+    for (int k = i + 1; k < 6; ++k) si = si - Lc[k][i] * a0[k];
+    a0[i] = si / Lc[i][i];
+  }
+  return bcon;
+}
+
+// Pass 3 of leg l: its joint accelerations, outward from a0.
+DEV void leg_pass3(int l, const LegP3& L, const float a0[6], float qdd[3]) {
+  float hip_r[3], thigh_r[3];
+  for (int i = 0; i < 3; ++i) {
+    hip_r[i] = HIP_R[i][l];
+    thigh_r[i] = THIGH_R[i][l];
+  }
+  const float calf_r[3] = {0.0f, 0.0f, CALF_RZ};
+  float aw[3] = {a0[0], a0[1], a0[2]}, au[3] = {a0[3], a0[4], a0[5]};
+  float awc[3], auc[3];
+  // hip (x axis)
+  xform_motion<0>(L.c[0], L.s[0], hip_r, aw, au, awc, auc);
+  awc[1] = awc[1] + L.cw[0][0];  awc[2] = awc[2] + L.cw[0][1];
+  auc[1] = auc[1] + L.cu[0][0];  auc[2] = auc[2] + L.cu[0][1];
+  float qa = ((L.J[0].uu - dot3(L.J[0].Ua, awc)) - dot3(L.J[0].Ul, auc)) /
+             L.J[0].d;
+  awc[0] = awc[0] + qa;
+  qdd[0] = qa;
+  // thigh (y axis)
+  xform_motion<1>(L.c[1], L.s[1], thigh_r, awc, auc, aw, au);
+  aw[0] = aw[0] + L.cw[1][0];  aw[2] = aw[2] + L.cw[1][1];
+  au[0] = au[0] + L.cu[1][0];  au[2] = au[2] + L.cu[1][1];
+  qa = ((L.J[1].uu - dot3(L.J[1].Ua, aw)) - dot3(L.J[1].Ul, au)) / L.J[1].d;
+  aw[1] = aw[1] + qa;
+  qdd[1] = qa;
+  // calf (y axis, joint on the thigh's z axis)
+  xform_motion<1>(L.c[2], L.s[2], calf_r, aw, au, awc, auc);
+  awc[0] = awc[0] + L.cw[2][0];  awc[2] = awc[2] + L.cw[2][1];
+  auc[0] = auc[0] + L.cu[2][0];  auc[2] = auc[2] + L.cu[2][1];
+  qa = ((L.J[2].uu - dot3(L.J[2].Ua, awc)) - dot3(L.J[2].Ul, auc)) /
+       L.J[2].d;
+  qdd[2] = qa;
+}
+
+// Semi-implicit Euler of one leg's joints.
+DEV void integrate_leg(const Args& a, const float qdd[3], Leg& L) {
+  for (int k = 0; k < 3; ++k) {
+    L.qd[k] = clampf(L.qd[k] + a.dt * qdd[k], -a.max_jv, a.max_jv);
+    L.q[k] = L.q[k] + a.dt * L.qd[k];
+  }
+}
+
+// Semi-implicit Euler of the base, exp-map quaternion.
+DEV void integrate_base(const Args& a, const float Rb[3][3],
+                        const float a0[6], Base& s) {
+  const float dt = a.dt;
+  float wn[3], vn[3];
+  for (int i = 0; i < 3; ++i) {
+    wn[i] = clampf(s.w[i] + dt * a0[i], -a.max_bv, a.max_bv);
+    vn[i] = clampf(s.v[i] + dt * a0[3 + i], -a.max_bv, a.max_bv);
+  }
+  if (a.on_rack) {
+    // base welded in place (minitaur.py:106, 418)
+    for (int i = 0; i < 3; ++i) {
+      s.w[i] = 0.0f;
+      s.v[i] = 0.0f;
+    }
+    return;
+  }
+  float vw[3], ww[3];
+  mv(Rb, vn, vw);
+  for (int i = 0; i < 3; ++i) s.pos[i] = s.pos[i] + dt * vw[i];
+  mv(Rb, wn, ww);
+  const float ang =
+      sqrtf(((ww[0] * ww[0] + ww[1] * ww[1]) + ww[2] * ww[2]) + 1e-16f);
+  const float half = (0.5f * ang) * dt;
+  const float sc = sinf(half) / ang;
+  const float dqw = cosf(half), dqx = sc * ww[0], dqy = sc * ww[1],
+              dqz = sc * ww[2];
+  const float qw = s.quat[0], qx = s.quat[1], qy = s.quat[2], qz = s.quat[3];
+  const float nw = ((dqw * qw - dqx * qx) - dqy * qy) - dqz * qz;
+  const float nx = ((dqw * qx + dqx * qw) + dqy * qz) - dqz * qy;
+  const float ny = ((dqw * qy - dqx * qz) + dqy * qw) + dqz * qx;
+  const float nz = ((dqw * qz + dqx * qy) - dqy * qx) + dqz * qw;
+  const float inv = rsq(((nw * nw + nx * nx) + ny * ny) + nz * nz);
+  s.quat[0] = nw * inv;
+  s.quat[1] = nx * inv;
+  s.quat[2] = ny * inv;
+  s.quat[3] = nz * inv;
+  for (int i = 0; i < 3; ++i) {
+    s.w[i] = wn[i];
+    s.v[i] = vn[i];
+  }
+}
+
+// After substep it: leg l's rows of the newest S snapshot rows
+// [q | qd | quat | w] (the base rows too when `base`), and its rows of the
+// pd-latency ring at the new newest slot ph_base.
+DEV void store_substep(const Args& a, int b, int l, int it, int ph_base,
+                       const Leg& L, const Base& s, bool base) {
+  const int r = it - (a.n - a.S);
+  if (r >= 0) {
+    float* row = a.o_stack + (size_t)r * 31 * a.B;
+    for (int k = 0; k < 3; ++k) {
+      ROW(row, 3 * l + k) = L.q[k];
+      ROW(row, 12 + 3 * l + k) = L.qd[k];
+    }
+    if (base) {
+      for (int i = 0; i < 4; ++i) ROW(row, 24 + i) = s.quat[i];
+      for (int i = 0; i < 3; ++i) ROW(row, 28 + i) = s.w[i];
+    }
+  }
+  if (a.P > 0) {
+    for (int k = 0; k < 3; ++k) {
+      ROW(a.ph, ph_base * 24 + 3 * l + k) = L.q[k];
+      ROW(a.ph, ph_base * 24 + 12 + 3 * l + k) = L.qd[k];
+    }
+  }
+}
+
+// Leg l's foot and contact rows of the outputs (from the last substep).
+DEV void store_contact(const Args& a, int b, int l, const LegContact& C) {
+  for (int k = 0; k < 3; ++k) ROW(a.o_foot, k * 4 + l) = C.foot[k];
+  ROW(a.o_fcon, l) = C.fcon;
+  ROW(a.o_kcon, l) = C.kcon;
+}
+
+// Leg l's joint rows of the outputs.
+DEV void store_leg(const Args& a, int b, int l, const Leg& L) {
+  for (int k = 0; k < 3; ++k) {
+    ROW(a.o_q, 3 * l + k) = L.q[k];
+    ROW(a.o_qd, 3 * l + k) = L.qd[k];
+    ROW(a.o_tau, 3 * l + k) = L.tau[k];
+  }
+}
+
+// The base's rows of the outputs.
+DEV void store_base(const Args& a, int b, const Base& s, float bcon) {
+  for (int i = 0; i < 3; ++i) {
+    ROW(a.o_pos, i) = s.pos[i];
+    ROW(a.o_w, i) = s.w[i];
+    ROW(a.o_v, i) = s.v[i];
+  }
+  for (int i = 0; i < 4; ++i) ROW(a.o_quat, i) = s.quat[i];
+  a.o_bcon[b] = bcon;
+}
+
+#undef ROW
 
 HD void unpack_args(const void* const* ptrs, const float* f, const int* iv,
                     Args& a) {
@@ -874,19 +964,68 @@ HD void unpack_args(const void* const* ptrs, const float* f, const int* iv,
 
 }  // namespace prt
 
+// Launch geometry: threads per env, threads per block, blocks and static
+// shared memory bytes of a launch over B envs (ops/physics_step.launch_plan
+// reports the same).
+extern "C" void prt_launch_plan(int B, int* out) {
+  out[0] = prt::LEGS;
+  out[1] = prt::LEGS * prt::ENVS_PER_BLOCK;
+  out[2] = (B + prt::ENVS_PER_BLOCK - 1) / prt::ENVS_PER_BLOCK;
+  out[3] = (int)(2 * prt::LEGS * prt::XCH * prt::ENVS_PER_BLOCK *
+                 sizeof(float));
+}
+
 #ifdef __CUDACC__
 
 template <int MODE>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(prt::LEGS * prt::ENVS_PER_BLOCK)
     control_step_kernel(prt::Args a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < a.B) prt::control_step_env<MODE>(a, b);
+  using namespace prt;
+  // the legs' x of even and odd substeps: a warp can write the next
+  // substep's while another still reads this one's
+  __shared__ float xch[2][LEGS][XCH][ENVS_PER_BLOCK];
+  const int l = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x * ENVS_PER_BLOCK + lane;
+  const bool live = b < a.B;
+  const int bc = live ? b : a.B - 1;  // a tail lane shadows env B - 1
+  Base s;
+  Leg L;
+  load_base(a, bc, s);
+  load_leg(a, bc, l, L);
+  float bcon = 0.0f;
+  int ph_base = 0;  // physical slot of the newest pd-ring row
+#pragma unroll 1
+  for (int it = 0; it < a.n; ++it) {
+    leg_motor(a, bc, l, it, ph_base, L);
+    float Rb[3][3], wW[3], vW[3];
+    base_frame(s, Rb, wW, vW);
+    LegContact C;
+    LegP3 P;
+    float x[XCH];
+    leg_pass12<MODE>(a, bc, l, s, Rb, wW, vW, L, C, P, x);
+    if (live && it == a.n - 1) store_contact(a, b, l, C);
+    float (*buf)[XCH][ENVS_PER_BLOCK] = xch[it & 1];
+#pragma unroll
+    for (int k = 0; k < XCH; ++k) buf[l][k][lane] = x[k];
+    __syncthreads();
+    float a0[6], qdd[3];
+    bcon = base_solve<MODE>(a, bc, s, Rb, vW, &buf[0][0][lane],
+                            XCH * ENVS_PER_BLOCK, ENVS_PER_BLOCK, a0);
+    leg_pass3(l, P, a0, qdd);
+    integrate_leg(a, qdd, L);
+    integrate_base(a, Rb, a0, s);
+    if (a.P > 0) ph_base = (ph_base + a.P - 1) % a.P;
+    if (live) store_substep(a, b, l, it, ph_base, L, s, l == 0);
+  }
+  if (live) {
+    store_leg(a, b, l, L);
+    if (l == 0) store_base(a, b, s, bcon);
+  }
 }
 
 template <int MODE>
-static void launch(const prt::Args& a, cudaStream_t stream) {
-  const int threads = 32;
-  const int blocks = (a.B + threads - 1) / threads;
+static void launch(const prt::Args& a, int blocks, int threads,
+                   cudaStream_t stream) {
   control_step_kernel<MODE><<<blocks, threads, 0, stream>>>(a);
 }
 
@@ -902,26 +1041,81 @@ extern "C" int prt_control_step(const void* const* ptrs, int n_ptrs,
   prt::Args a;
   prt::unpack_args(ptrs, f, iv, a);
   if (a.B <= 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (iv[9]) {
-    case prt::TERRAIN_GROUND: launch<prt::TERRAIN_GROUND>(a, s); break;
-    case prt::TERRAIN_UP_SLOPE: launch<prt::TERRAIN_UP_SLOPE>(a, s); break;
-    case prt::TERRAIN_DOWN_SLOPE: launch<prt::TERRAIN_DOWN_SLOPE>(a, s); break;
-    case prt::TERRAIN_SLOPESLOPE: launch<prt::TERRAIN_SLOPESLOPE>(a, s); break;
-    case prt::TERRAIN_UP_STAIR: launch<prt::TERRAIN_UP_STAIR>(a, s); break;
-    case prt::TERRAIN_DOWN_STAIR: launch<prt::TERRAIN_DOWN_STAIR>(a, s); break;
-    case prt::TERRAIN_STAIRSTAIR: launch<prt::TERRAIN_STAIRSTAIR>(a, s); break;
-    case prt::TERRAIN_OBSTACLE: launch<prt::TERRAIN_OBSTACLE>(a, s); break;
-    case prt::TERRAIN_BALANCE_BEAM:
-      launch<prt::TERRAIN_BALANCE_BEAM>(a, s);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (iv[9] < 0 || iv[9] >= prt::N_TERRAIN) return (int)cudaErrorInvalidValue;
+  // one instance per terrain mode, in the order of the enum
+  using Launch = void (*)(const prt::Args&, int, int, cudaStream_t);
+  static const Launch by_mode[prt::N_TERRAIN] = {
+      launch<0>, launch<1>, launch<2>, launch<3>, launch<4>,
+      launch<5>, launch<6>, launch<7>, launch<8>};
+  int plan[4];
+  prt_launch_plan(a.B, plan);
+  by_mode[iv[9]](a, plan[2], plan[1], (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
 extern "C" const char* prt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
+}
+
+#else  // a host compiler: the same stages, env by env
+
+template <int MODE>
+static void control_step_host_env(const prt::Args& a, int b) {
+  using namespace prt;
+  Base s;
+  Leg L[LEGS];
+  load_base(a, b, s);
+  for (int l = 0; l < LEGS; ++l) load_leg(a, b, l, L[l]);
+  float bcon = 0.0f;
+  int ph_base = 0;
+  for (int it = 0; it < a.n; ++it) {
+    for (int l = 0; l < LEGS; ++l) leg_motor(a, b, l, it, ph_base, L[l]);
+    float Rb[3][3], wW[3], vW[3];
+    base_frame(s, Rb, wW, vW);
+    LegP3 P[LEGS];
+    float x[LEGS][XCH];
+    for (int l = 0; l < LEGS; ++l) {
+      LegContact C;
+      leg_pass12<MODE>(a, b, l, s, Rb, wW, vW, L[l], C, P[l], x[l]);
+      if (it == a.n - 1) store_contact(a, b, l, C);
+    }
+    float a0[6];
+    bcon = base_solve<MODE>(a, b, s, Rb, vW, &x[0][0], XCH, 1, a0);
+    for (int l = 0; l < LEGS; ++l) {
+      float qdd[3];
+      leg_pass3(l, P[l], a0, qdd);
+      integrate_leg(a, qdd, L[l]);
+    }
+    integrate_base(a, Rb, a0, s);
+    if (a.P > 0) ph_base = (ph_base + a.P - 1) % a.P;
+    for (int l = 0; l < LEGS; ++l)
+      store_substep(a, b, l, it, ph_base, L[l], s, l == 0);
+  }
+  for (int l = 0; l < LEGS; ++l) store_leg(a, b, l, L[l]);
+  store_base(a, b, s, bcon);
+}
+
+template <int MODE>
+static void control_step_host(const prt::Args& a) {
+  for (int b = 0; b < a.B; ++b) control_step_host_env<MODE>(a, b);
+}
+
+// The host entry point, with the kernel's arguments on host pointers.
+// Returns 0, or -1 for bad counts or mode.
+extern "C" int prt_control_step_host(const void* const* ptrs, int n_ptrs,
+                                     const float* f, int n_f, const int* iv,
+                                     int n_i) {
+  if (n_ptrs != 33 || n_f != 22 || n_i != 10) return -1;
+  prt::Args a;
+  prt::unpack_args(ptrs, f, iv, a);
+  if (iv[9] < 0 || iv[9] >= prt::N_TERRAIN) return -1;
+  using Step = void (*)(const prt::Args&);
+  static const Step by_mode[prt::N_TERRAIN] = {
+      control_step_host<0>, control_step_host<1>, control_step_host<2>,
+      control_step_host<3>, control_step_host<4>, control_step_host<5>,
+      control_step_host<6>, control_step_host<7>, control_step_host<8>};
+  by_mode[iv[9]](a);
+  return 0;
 }
 
 #endif  // __CUDACC__

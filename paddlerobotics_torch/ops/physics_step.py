@@ -15,7 +15,10 @@ The kernel is compiled at first use through ``ops/build.py`` (``nvcc`` for
 constants header and the flags). The constants header is generated here
 from the port's own constants, with every value that the plain version
 folds in double precision folded the same way, so both versions round at
-the same places.
+the same places. ``launch_plan`` reports a launch's geometry (a warp per
+leg, a lane per env). The same source also builds with a host compiler,
+whose ``prt_control_step_host`` runs the kernel's stages env by env on
+host pointers from ``launch_args`` (the CPU tests' check of the kernel).
 
 ``control_step.launches`` counts kernel launches (plain-version calls do
 not count); a caller may reset it to 0.
@@ -53,6 +56,10 @@ FLOAT_NAMES = ("dt", "k", "d", "friction_coef", "vs2", "cap_foot",
                "beam_half_width", "x0_plus_beam_length")
 INT_NAMES = ("B", "n", "S", "torque", "interp", "on_rack", "P", "i0", "i1",
              "mode")
+# Launch geometry (physics_step.cu, prt_launch_plan): a warp per leg, a lane
+# per env, and the legs' 33 floats each exchanged through shared memory,
+# double-buffered.
+LEGS, ENVS_PER_BLOCK, XCH_FLOATS = 4, 32, 33
 
 _lib = None
 build_info: dict = {}
@@ -255,6 +262,14 @@ def launch_args(rb, action, p, cfg, h_fn, torque_mode, qd_ref, tau_ff):
             len(ints) != len(INT_NAMES):
         raise AssertionError("launch argument layout out of date")
     return ptrs, floats, ints, outs, keep
+
+
+def launch_plan(B: int) -> dict:
+    """Threads per env, threads per block, blocks and static shared memory
+    of one launch over B envs."""
+    return {"threads_per_env": LEGS, "threads": LEGS * ENVS_PER_BLOCK,
+            "blocks": -(-B // ENVS_PER_BLOCK),
+            "smem_bytes": 2 * LEGS * XCH_FLOATS * ENVS_PER_BLOCK * 4}
 
 
 def robot_from_outputs(rb, action, outs) -> BRobot:

@@ -16,33 +16,50 @@ from typing import Callable
 import torch
 
 
-def device_breakdown(fn: Callable[[], object], reps: int, top: int = 6
-                     ) -> dict:
+ATTEMPTS = 3
+
+
+def device_breakdown(fn: Callable[[], object], reps: int, top: int = 6,
+                     match: str | None = None) -> dict:
     """Profile `reps` calls of `fn` (after one warm-up call).
 
     Returns per-call kernel count and device ms, wall ms, the device busy
     share (summed kernel time over wall time, one stream) and the `top`
-    kernels by device time with their share of it."""
+    kernels by device time with their share of it. With `match`, also the
+    launches and device ms per call of the kernels whose name contains it
+    (`match_launches_per_call`, `match_ms_per_call`). Raises if the
+    profiler saw no such kernel in `ATTEMPTS` windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    per_kernel = collections.Counter()
-    count = 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        count += 1
-        per_kernel[ev.name] += ev.time_range.elapsed_us()
+    # a window of a few short kernels now and then comes back with no
+    # device events at all (or none of the matched ones); such a window is
+    # taken again
+    for _ in range(ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        per_kernel = collections.Counter()
+        count = matched = 0
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            count += 1
+            matched += bool(match and match in ev.name)
+            per_kernel[ev.name] += ev.time_range.elapsed_us()
+        if count and (matched or not match):
+            break
+    else:
+        raise RuntimeError(f"torch.profiler saw no device kernel "
+                           f"{'named ' + match + ' ' if match else ''}in "
+                           f"{ATTEMPTS} windows of {reps} calls")
     dev_us = sum(per_kernel.values())
-    return {
+    out = {
         "kernels_per_call": count / reps,
         "device_ms_per_call": dev_us / reps / 1e3,
         "wall_ms_per_call": wall_us / reps / 1e3,
@@ -50,3 +67,8 @@ def device_breakdown(fn: Callable[[], object], reps: int, top: int = 6
         "top": [(name[:60], round(us / dev_us, 4) if dev_us else 0.0)
                 for name, us in per_kernel.most_common(top)],
     }
+    if match:
+        out["match_launches_per_call"] = matched / reps
+        out["match_ms_per_call"] = sum(
+            us for name, us in per_kernel.items() if match in name) / reps / 1e3
+    return out

@@ -65,7 +65,8 @@ def _rollout(sections, dyn_scale=None, start_idx=0, donef_at=None):
     js, jobs = jenv.reset(jax.random.key(3), dyn=dyn_j)
     ts, tobs = tenv.reset(
         torch.Generator().manual_seed(3), push_salt=int(js.push_salt),
-        dyn=None if dyn_j is None else convert.dyn_from_numpy(dyn_np(dyn_j)))
+        dyn=None if dyn_j is None else convert.dyn_from_numpy(
+            dyn_np(dyn_j), device="cpu"))
     np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=ATOL)
     assert ts.robot.obs_hist.shape == js.robot.obs_hist.shape
     if start_idx:

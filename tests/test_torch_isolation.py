@@ -19,6 +19,7 @@ from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
 from paddlerobotics_torch.hri.perception.scene import SceneSensor
 from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
                                               ServiceConfig)
+from paddlerobotics_torch.sim import sbatch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -56,6 +57,25 @@ def test_env_without_device_needs_a_card():
     assert env.device.type == "cpu"
 
 
+def _robot_fields() -> dict:
+    rb = sbatch.init_robot(2, 0.3, device="cpu")
+    c = rb.contact
+    out = {f: getattr(rb.s, f).numpy()
+           for f in ("pos", "quat", "w", "v", "q", "qd")}
+    out.update(last_action=rb.last_action.numpy(), tau=rb.tau.numpy(),
+               foot_pos=c.foot_pos.numpy(),
+               foot_contact=c.foot_contact.numpy(),
+               knee_contact=c.knee_contact.numpy(),
+               base_contact=c.base_contact.numpy(),
+               obs_hist=rb.obs_hist.numpy(), hist_head=rb.hist_head)
+    return out
+
+
+def _dyn_fields() -> dict:
+    p = sbatch.BDynParams.default(2, device="cpu")
+    return {f: getattr(p, f).numpy() for f in sbatch.BDynParams._fields}
+
+
 _SMALL_CTRL = AttnCtrlConfig(num_actions=3, model_dim=8, num_decoder_blocks=1,
                              num_heads=2, ffn_dim=8, act_tr_dim=4)
 _ENTRY_POINTS = {
@@ -73,6 +93,10 @@ _ENTRY_POINTS = {
         **kw),
     "opt_with_points": lambda **kw: fit.opt_with_points(
         QuadrupedConfig().etg, **kw)[0],
+    "dyn_from_numpy": lambda **kw: convert.dyn_from_numpy(
+        _dyn_fields(), **kw).motor_kp,
+    "robot_from_numpy": lambda **kw: convert.robot_from_numpy(
+        _robot_fields(), **kw).s.q,
 }
 
 

@@ -56,8 +56,8 @@ def run_both(rb_j, p_j, target, sim_kw=None, task_kw=None, steps=1,
     tcfg = SimConfig(**(sim_kw or {}))
     jh = jterrain.height_fn(JTaskConfig(**(task_kw or {})))
     th = terrain.height_fn(TaskConfig(**(task_kw or {})))
-    rb_t = convert.robot_from_numpy(robot_np(rb_j))
-    p_t = convert.dyn_from_numpy(dyn_np(p_j))
+    rb_t = convert.robot_from_numpy(robot_np(rb_j), device="cpu")
+    p_t = convert.dyn_from_numpy(dyn_np(p_j), device="cpu")
     tt = lambda x: None if x is None else torch.as_tensor(np.asarray(x))
     jx = lambda x: None if x is None else jnp.asarray(x)
     launches = physics_step.control_step.launches
