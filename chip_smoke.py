@@ -23,8 +23,10 @@ yardstick; and each wrapper's host cost per call. Imports nothing of JAX.
 Exits non-zero on any failure and when no CUDA device is present. The
 last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists every kernel with its launches, error and times
-(``ms``: device time per launch).
+the line before it lists every kernel with its launches, error and times:
+``ms``, ``plain_ms`` and ``library_ms`` by CUDA events per call;
+``device_ms``, ``plain_device_ms`` and ``library_device_ms`` the same
+calls' device time under ``torch.profiler`` (the kernel's per launch).
 """
 
 from __future__ import annotations
@@ -359,6 +361,7 @@ def main() -> int:
     prof = profiler.device_breakdown(kern, reps=20, match="control_step_kernel")
     kernel_dev = (prof["match_ms_per_call"]
                   / max(prof["match_launches_per_call"], 1e-9))
+    plain_dev = profiler.device_breakdown(plain, reps=2)["device_ms_per_call"]
 
     # bound: every input read once and every output written once, and the
     # plain version's elementwise operations on these inputs at the FP32
@@ -380,7 +383,9 @@ def main() -> int:
     log("kernel_time", B=B, kernel_ms=round(kernel_ms, 5),
         kernel_device_ms_per_launch=round(kernel_dev, 5),
         launches_caught_per_call=prof["match_launches_per_call"],
-        plain_ms=round(plain_ms, 3), bytes=bytes_moved, ops=ops,
+        wrapper_device_ms_per_call=round(prof["device_ms_per_call"], 5),
+        plain_ms=round(plain_ms, 3), plain_device_ms=round(plain_dev, 4),
+        bytes=bytes_moved, ops=ops,
         bound_bytes_ms=round(bound_bytes_ms, 5),
         bound_ops_ms=round(bound_ops_ms, 5),
         bound_ops_nofma_ms=round(bound_ops_nofma_ms, 5),
@@ -425,11 +430,14 @@ def main() -> int:
         "replaces": "paddlerobotics_tpu/ops/pallas/physics_step.py:135",
         "launches": launches,
         "max_abs_err": worst,
-        "ms": kernel_dev,
+        "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
+        "device_ms": kernel_dev,
+        "plain_device_ms": plain_dev,
+        "library_device_ms": None,
     }]
     kernels.append(hri_phases(dev, card))
     print(card)
@@ -757,11 +765,14 @@ def hri_phases(dev, card) -> dict:
                 "replaces": "paddlerobotics_tpu/ops/pallas/attention.py:61",
                 "launches": launches,
                 "max_abs_err": worst,
-                "ms": kernel_dev,
+                "ms": kernel_ms,
                 "plain_ms": plain_ms,
                 "bound_ms": bd["bound_ms"],
                 "bound_by": bd["bound_by"],
                 "library_ms": lib_ms,
+                "device_ms": kernel_dev,
+                "plain_device_ms": dev_ms["plain"]["device_ms_per_call"],
+                "library_device_ms": dev_ms["sdpa"]["device_ms_per_call"],
             }
 
     # --- the wrapper's host cost at the serving shape ---------------------------

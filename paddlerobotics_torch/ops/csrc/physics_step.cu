@@ -32,7 +32,8 @@
 // base outputs; each warp writes its own joints' rows of the outputs, of
 // the snapshot rows and of the pd-latency ring, which is rotated in place.
 // Lanes past B compute a copy of env B - 1 and store nothing, so every
-// lane reaches every barrier.
+// lane reaches every barrier; they read no pd-ring row, which env B - 1's
+// own lane rewrites in the same warp with no ordering against them.
 //
 // The stages are DEV functions: device code under nvcc, plain inline
 // functions under a host compiler. Built with g++ -x c++, the same stages
@@ -510,8 +511,11 @@ DEV void load_leg(const Args& a, int b, int l, Leg& L) {
 }
 
 // Motor law of leg l's three joints at substep it; ph_base is the physical
-// slot of the newest pd-ring row.
-DEV void leg_motor(const Args& a, int b, int l, int it, int ph_base, Leg& L) {
+// slot of the newest pd-ring row. Without `ring` the law reads the joint
+// state in place of the ring (a tail lane, whose env's ring column the
+// live lane of that env writes unordered with this read).
+DEV void leg_motor(const Args& a, int b, int l, int it, int ph_base,
+                   bool ring, Leg& L) {
   const float t = (float)(it + 1) / (float)a.n;
   for (int k = 0; k < 3; ++k) {
     const int j = 3 * l + k;
@@ -522,7 +526,7 @@ DEV void leg_motor(const Args& a, int b, int l, int it, int ph_base, Leg& L) {
       tj = clampf(cmd, -TORQUE_LIMIT, TORQUE_LIMIT);
     } else {
       float q_in = L.q[k], qd_in = L.qd[k];
-      if (a.P > 0) {
+      if (a.P > 0 && ring) {
         const int s0 = (ph_base + a.i0) % a.P, s1 = (ph_base + a.i1) % a.P;
         q_in = a.pd_w0 * ROW(a.ph, s0 * 24 + j) +
                a.pd_w1 * ROW(a.ph, s1 * 24 + j);
@@ -966,7 +970,7 @@ HD void unpack_args(const void* const* ptrs, const float* f, const int* iv,
 
 // Launch geometry: threads per env, threads per block, blocks and static
 // shared memory bytes of a launch over B envs (ops/physics_step.launch_plan
-// reports the same).
+// reads it from the built library).
 extern "C" void prt_launch_plan(int B, int* out) {
   out[0] = prt::LEGS;
   out[1] = prt::LEGS * prt::ENVS_PER_BLOCK;
@@ -996,7 +1000,7 @@ __global__ void __launch_bounds__(prt::LEGS * prt::ENVS_PER_BLOCK)
   int ph_base = 0;  // physical slot of the newest pd-ring row
 #pragma unroll 1
   for (int it = 0; it < a.n; ++it) {
-    leg_motor(a, bc, l, it, ph_base, L);
+    leg_motor(a, bc, l, it, ph_base, live, L);
     float Rb[3][3], wW[3], vW[3];
     base_frame(s, Rb, wW, vW);
     LegContact C;
@@ -1069,7 +1073,8 @@ static void control_step_host_env(const prt::Args& a, int b) {
   float bcon = 0.0f;
   int ph_base = 0;
   for (int it = 0; it < a.n; ++it) {
-    for (int l = 0; l < LEGS; ++l) leg_motor(a, b, l, it, ph_base, L[l]);
+    for (int l = 0; l < LEGS; ++l)
+      leg_motor(a, b, l, it, ph_base, true, L[l]);
     float Rb[3][3], wW[3], vW[3];
     base_frame(s, Rb, wW, vW);
     LegP3 P[LEGS];

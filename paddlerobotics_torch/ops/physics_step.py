@@ -16,7 +16,7 @@ constants header and the flags). The constants header is generated here
 from the port's own constants, with every value that the plain version
 folds in double precision folded the same way, so both versions round at
 the same places. ``launch_plan`` reports a launch's geometry (a warp per
-leg, a lane per env). The same source also builds with a host compiler,
+leg, a lane per env) from the library's ``prt_launch_plan``. The same source also builds with a host compiler,
 whose ``prt_control_step_host`` runs the kernel's stages env by env on
 host pointers from ``launch_args`` (the CPU tests' check of the kernel).
 
@@ -56,10 +56,8 @@ FLOAT_NAMES = ("dt", "k", "d", "friction_coef", "vs2", "cap_foot",
                "beam_half_width", "x0_plus_beam_length")
 INT_NAMES = ("B", "n", "S", "torque", "interp", "on_rack", "P", "i0", "i1",
              "mode")
-# Launch geometry (physics_step.cu, prt_launch_plan): a warp per leg, a lane
-# per env, and the legs' 33 floats each exchanged through shared memory,
-# double-buffered.
-LEGS, ENVS_PER_BLOCK, XCH_FLOATS = 4, 32, 33
+# the four ints of prt_launch_plan, in order
+PLAN_NAMES = ("threads_per_env", "threads", "blocks", "smem_bytes")
 
 _lib = None
 build_info: dict = {}
@@ -157,6 +155,8 @@ def build() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.prt_error_string.argtypes = [ctypes.c_int]
     lib.prt_error_string.restype = ctypes.c_char_p
+    lib.prt_launch_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.prt_launch_plan.restype = None
     build_info.update(info)
     _lib = lib
     return lib
@@ -264,12 +264,13 @@ def launch_args(rb, action, p, cfg, h_fn, torque_mode, qd_ref, tau_ff):
     return ptrs, floats, ints, outs, keep
 
 
-def launch_plan(B: int) -> dict:
+def launch_plan(B: int, lib: ctypes.CDLL | None = None) -> dict:
     """Threads per env, threads per block, blocks and static shared memory
-    of one launch over B envs."""
-    return {"threads_per_env": LEGS, "threads": LEGS * ENVS_PER_BLOCK,
-            "blocks": -(-B // ENVS_PER_BLOCK),
-            "smem_bytes": 2 * LEGS * XCH_FLOATS * ENVS_PER_BLOCK * 4}
+    of one launch over B envs, as the source's ``prt_launch_plan`` computes
+    them: in the built kernel library, or in ``lib`` (a host build)."""
+    out = (ctypes.c_int * len(PLAN_NAMES))()
+    (lib or build()).prt_launch_plan(B, out)
+    return dict(zip(PLAN_NAMES, out))
 
 
 def robot_from_outputs(rb, action, outs) -> BRobot:

@@ -168,10 +168,15 @@ def test_host_build_of_the_kernel_matches(host_lib, case):
 
 
 def test_launch_plan_matches_the_source(host_lib):
-    """The wrapper's launch plan is the one the kernel source launches."""
+    """The wrapper reports the plan the source launches: a warp per leg and
+    a lane per env, the fewest blocks that cover B, and the legs' 33
+    floats per env in shared memory, double-buffered."""
     for n in (1, 32, 33, 4093, 4096):
         out = (ctypes.c_int * 4)()
         host_lib.prt_launch_plan(n, out)
-        plan = physics_step.launch_plan(n)
-        assert list(out) == [plan["threads_per_env"], plan["threads"],
-                             plan["blocks"], plan["smem_bytes"]]
+        plan = physics_step.launch_plan(n, lib=host_lib)
+        assert list(out) == [plan[k] for k in physics_step.PLAN_NAMES]
+        envs = plan["threads"] // plan["threads_per_env"]
+        assert (plan["threads_per_env"], envs) == (4, 32)
+        assert (plan["blocks"] - 1) * envs < n <= plan["blocks"] * envs
+        assert plan["smem_bytes"] == 2 * 4 * 33 * envs * 4
