@@ -7,6 +7,12 @@ to 0 just before it and read just after:
 
 - physics: the batched A1 env and the deterministic-policy rollout
   ``train.etg_rl.evaluate`` at B=4096 (one physics launch per step);
+- training: ``ETGRLTrainer.train`` at B=4096, K=4 and the default widths
+  (2×256 SAC, batch 256, 1M-row replay, SimpleGA popsize 40 on 320 ES
+  envs), depth cut, through a cold chunk, warm chunks, an eval window with
+  its checkpoint and an ES phase (one physics launch per control step of
+  each); a warm chunk through the kernel against the same chunk through
+  the plain physics; ``cli.train_bench``'s two schedules;
 - HRI serving: ``ProactiveGreetingService.process_frame`` with YOLOv4 at
   416² and the 317-action attention controller at its default widths (6
   attention launches per decided frame), then ``STEADY_FRAMES`` decided
@@ -32,6 +38,7 @@ calls' device time under ``torch.profiler`` (the kernel's per launch).
 from __future__ import annotations
 
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -70,6 +77,19 @@ FRAMES = 12                             # 9 fill the window, 3 are decided
 STEADY_FRAMES = 50                      # decided frames of the throughput run
 N_WINDOWS = 64
 HOST_CALLS = 1000                       # wrapper calls of [*_host]
+# the training path: depth cut, widths kept (QuadrupedConfig's defaults)
+TRAIN_K = 4                             # updates per control step
+TRAIN_CHUNK = 10                        # control steps per chunk
+TRAIN_EPISODE = 100                     # eval and ES episode length
+TRAIN_ES_GENS = 1                       # ES generations per ES phase
+VS_PLAIN_STEPS = 5
+# kernel vs plain physics after VS_PLAIN_STEPS warm steps: the kernel is
+# bit-equal to its plain version, so the weights may differ only by the
+# learner's own run-to-run rounding
+TRAIN_PARAM_TOL = 1e-4
+BENCH_ITERS = 2                         # timed chunks per bench schedule
+PART_REPS = 20                          # calls of a chunk's part, timed
+ROOT = pathlib.Path(__file__).resolve().parent
 
 
 def log(phase: str, **kw):
@@ -423,6 +443,8 @@ def main() -> int:
         event_ms_per_call=round(ev[0].elapsed_time(ev[1]) / HOST_CALLS, 5),
         card=repr(card))
 
+    train_launches = train_phases(dev, card)
+
     kernels = [{
         "name": "control_step",
         "route": "cuda",
@@ -438,6 +460,7 @@ def main() -> int:
         "device_ms": kernel_dev,
         "plain_device_ms": plain_dev,
         "library_device_ms": None,
+        "train_launches": train_launches,
     }]
     kernels.append(hri_phases(dev, card))
     print(card)
@@ -446,6 +469,248 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def train_phases(dev, card) -> int:
+    """The training path at full width: ``ETGRLTrainer.train`` through a
+    cold chunk, warm chunks, an eval window with its checkpoint and an ES
+    phase (``[train]``); a warm chunk through the kernel against the same
+    chunk through the plain physics (``[train_vs_plain]``); the port's
+    ``cli.train_bench`` schedules with one profiled control step each
+    (``[train_bench]``). Returns the physics launches of ``train``."""
+    import dataclasses
+    import shutil
+
+    from paddlerobotics_torch.algos import replay
+    from paddlerobotics_torch.cli import train_bench
+    from paddlerobotics_torch.core.config import QuadrupedConfig
+    from paddlerobotics_torch.ops import physics_step
+    from paddlerobotics_torch.sim import sbatch
+    from paddlerobotics_torch.train import checkpoints, etg_rl
+    from paddlerobotics_torch.utils import profiler
+
+    out_root = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(out_root, ignore_errors=True)
+    base = QuadrupedConfig()
+    chunk_env = TRAIN_CHUNK * B
+    # depth alone is cut: warm-up one chunk, the eval window after the
+    # second chunk, the ES phase after the third
+    cfg = dataclasses.replace(
+        base,
+        sac=dataclasses.replace(base.sac, warmup_steps=chunk_env),
+        es=dataclasses.replace(base.es, es_train_steps=TRAIN_ES_GENS,
+                               es_episode_len=TRAIN_EPISODE,
+                               es_every_steps=3 * chunk_env),
+        train=dataclasses.replace(base.train, eval_every_steps=2 * chunk_env,
+                                  eval_episode_len=TRAIN_EPISODE))
+    reduced = (f"chunk_steps 50->{TRAIN_CHUNK}, es_train_steps "
+               f"{base.es.es_train_steps}->{TRAIN_ES_GENS}, es_episode_len "
+               f"{base.es.es_episode_len}->{TRAIN_EPISODE}, eval_episode_len "
+               f"{base.train.eval_episode_len}->{TRAIN_EPISODE}, "
+               f"warmup_steps {base.sac.warmup_steps}->{chunk_env}, "
+               f"eval_every_steps {base.train.eval_every_steps}->"
+               f"{2 * chunk_env}, es_every_steps {base.es.es_every_steps}->"
+               f"{3 * chunk_env}")
+    outdir = out_root / "train"
+    tr = etg_rl.ETGRLTrainer(cfg, num_envs=B, outdir=str(outdir),
+                             updates_per_step=TRAIN_K, device=dev)
+
+    # per phase: host seconds up to a synchronize, physics launches, and
+    # the control steps the phase ran
+    phases: dict = {}
+    calls: dict = {}                    # each call's seconds, per phase
+    stack: list = []
+
+    def recorded(obj, name, phase_of=None, steps_of=None):
+        fn = getattr(obj, name)
+
+        def run(*a, **k):
+            stack.append(name)
+            torch.cuda.synchronize()
+            l0, t = physics_step.control_step.launches, time.perf_counter()
+            try:
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            finally:
+                stack.pop()
+            if phase_of is not None:
+                ph = phases.setdefault(phase_of(a), [0.0, 0, 0, 0])
+                calls.setdefault(phase_of(a), []).append(
+                    round(time.perf_counter() - t, 4))
+                ph[0] += time.perf_counter() - t
+                ph[1] += physics_step.control_step.launches - l0
+                ph[2] += steps_of(a)
+                ph[3] += 1
+            return out
+        setattr(obj, name, run)
+
+    recorded(tr, "rollout_chunk", lambda a: "warm" if a[3] else "cold",
+             lambda a: a[2])
+    recorded(tr, "_es_baseline")
+    recorded(tr, "evaluate",
+             lambda a: "es" if "_es_baseline" in stack else "eval",
+             lambda a: a[3])
+    recorded(tr, "es_eval", lambda a: "es", lambda a: a[4])
+    save = checkpoints.save
+    recorded(checkpoints, "save", lambda a: "checkpoint", lambda a: 0)
+    try:
+        physics_step.control_step.launches = 0
+        t0 = time.perf_counter()
+        carry, (w, b, param) = tr.train(max_steps=3 * chunk_env,
+                                        chunk_steps=TRAIN_CHUNK)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = physics_step.control_step.launches
+    finally:
+        checkpoints.save = save
+    tags: dict = {}
+    with open(outdir / "metrics.jsonl") as f:
+        for line in f:
+            rec = json.loads(line)
+            tags.setdefault(rec["tag"], []).append(rec["value"])
+    warm_s, warm_steps = phases["warm"][0], phases["warm"][2]
+    critic_loss = tags["train/critic_loss"][-1]
+    log("train", B=B, K=TRAIN_K, hidden=cfg.sac.hidden_dim,
+        batch=cfg.sac.batch_size, replay_capacity=cfg.sac.memory_size,
+        popsize=cfg.es.popsize, es_envs=tr.es_B, seconds=round(seconds, 3),
+        **{f"{n}_seconds": round(v[0], 3) for n, v in phases.items()},
+        **{f"{n}_launches": v[1] for n, v in phases.items()},
+        **{f"{n}_control_steps": v[2] for n, v in phases.items()},
+        **{f"{n}_calls": v[3] for n, v in phases.items()},
+        warm_chunk_seconds=json.dumps(calls["warm"]),
+        warm_env_steps_per_s=round(warm_steps * B / warm_s, 1),
+        grad_updates_per_s=round(warm_steps * TRAIN_K / warm_s, 1),
+        replay_size=carry.buffer.size, critic_loss=critic_loss,
+        eval_return=tags["eval/episode_reward"][-1],
+        eval_length=tags["eval/episode_step"][-1],
+        es_fitness_mean=tags["ES/episode_reward"][-1],
+        es_fitness_max=tags["ES/episode_maxre"][-1],
+        physics_launches=launches, checkpoint=checkpoints.latest_step(
+            str(outdir)), reduced=repr(reduced), card=repr(card))
+    want = {"cold": (1, TRAIN_CHUNK), "warm": (2, 2 * TRAIN_CHUNK),
+            "eval": (1, TRAIN_EPISODE), "checkpoint": (1, 0),
+            "es": (1 + TRAIN_ES_GENS, (1 + TRAIN_ES_GENS) * TRAIN_EPISODE)}
+    got = {n: (v[3], v[2]) for n, v in phases.items()}
+    if got != want:
+        raise RuntimeError(f"train ran the phases {got}, expected {want}")
+    if any(v[1] != v[2] for v in phases.values()) or \
+            launches != sum(v[2] for v in phases.values()):
+        raise RuntimeError(f"{launches} physics launches for the control "
+                           f"steps of {phases}")
+    if not np.isfinite(critic_loss) or critic_loss == 0.0:
+        raise RuntimeError(f"critic loss {critic_loss}")
+    if carry.buffer.size != (3 * TRAIN_CHUNK * B + TRAIN_ES_GENS
+                             * TRAIN_EPISODE * cfg.es.popsize):
+        raise RuntimeError(f"replay holds {carry.buffer.size} rows")
+    if not all(np.isfinite(tags[k][-1]) for k in (
+            "eval/episode_reward", "ES/episode_reward", "ES/episode_maxre")):
+        raise RuntimeError("non-finite eval return or ES fitness")
+    if not all(torch.isfinite(p).all() for p in
+               carry.sac_state.actor.parameters()):
+        raise RuntimeError("non-finite actor weights")
+    restored = checkpoints.restore(str(outdir / f"itr_{2 * chunk_env}"))
+    if restored["sac"]["actor"]["dense.0.weight"].shape != (
+            cfg.sac.hidden_dim, tr.env.obs_dim):
+        raise RuntimeError("checkpoint does not hold the actor")
+    del carry, tr, restored
+
+    # --- the same warm chunk through the kernel and through the plain physics
+    def chunk():
+        trv = etg_rl.ETGRLTrainer(base, num_envs=B, outdir=str(
+            out_root / "train_vs_plain"), updates_per_step=TRAIN_K,
+            device=dev)
+        c, _, _ = trv.init_carry(7)
+        c, out = trv.rollout_chunk(c, base.train.e_step, VS_PLAIN_STEPS, True)
+        torch.cuda.synchronize()
+        return c, out
+
+    physics_step.control_step.launches = 0
+    ck, out_k = chunk()
+    launches_k = physics_step.control_step.launches
+    orig = physics_step.control_step
+    physics_step.control_step = sbatch.control_step     # the env's call
+    try:
+        cp, out_p = chunk()
+    finally:
+        physics_step.control_step = orig
+    row_diff = (ck.buffer.data[:B] - cp.buffer.data[:B]).abs().max().item()
+    param_diff = max(
+        (a - c).abs().max().item()
+        for m_k, m_p in ((ck.sac_state.actor, cp.sac_state.actor),
+                         (ck.sac_state.critic, cp.sac_state.critic))
+        for a, c in zip(m_k.parameters(), m_p.parameters()))
+    rows_all = (ck.buffer.data[:VS_PLAIN_STEPS * B]
+                - cp.buffer.data[:VS_PLAIN_STEPS * B]).abs().max().item()
+    log("train_vs_plain", B=B, K=TRAIN_K, steps=VS_PLAIN_STEPS,
+        kernel_launches=launches_k,
+        first_step_replay_max_abs_diff=row_diff,
+        all_steps_replay_max_abs_diff=rows_all,
+        param_max_abs_diff=param_diff,
+        critic_loss_kernel=out_k["critic_loss"].item(),
+        critic_loss_plain=out_p["critic_loss"].item(),
+        nondeterministic=("none" if param_diff == 0 else
+                          "the learner (cuBLAS GEMM, Adam) on bit-equal "
+                          "replay rows" if rows_all == 0 else
+                          "the env step after the first"))
+    if launches_k != VS_PLAIN_STEPS:
+        raise RuntimeError(f"{launches_k} launches for {VS_PLAIN_STEPS} steps")
+    if row_diff != 0.0 or param_diff > TRAIN_PARAM_TOL:
+        raise RuntimeError("training through the kernel disagrees with the "
+                           "plain physics")
+    del ck, cp
+
+    # --- the port's train_bench schedules, one profiled control step each ---
+    for tag, Bs, Ks in train_bench.SCHEDULES:
+        r = train_bench.bench_schedule(tag, Bs, Ks, TRAIN_CHUNK,
+                                       BENCH_ITERS, str(out_root / "bench"),
+                                       device=dev)
+        trb = train_bench.make_trainer(Bs, Ks, str(out_root / "bench_prof"),
+                                       device=dev)
+        holder = list(trb.init_carry(0)[:1])
+        holder[0] = trb.rollout_chunk(holder[0], 600, 1, True)[0]
+
+        def one_step():
+            holder[0] = trb.rollout_chunk(holder[0], 600, 1, True)[0]
+
+        prof = profiler.device_breakdown(one_step, reps=3,
+                                         match="control_step_kernel")
+        # the chunk's two parts apart, on the host clock up to a
+        # synchronize after PART_REPS calls and under the profiler: one SAC
+        # update, one env step
+        c = holder[0]
+        batch = {f: v[0] for f, v in replay.sample_many(
+            c.buffer, 1, trb.cfg.sac.batch_size, generator=c.rng).items()}
+        zeros = torch.zeros((Bs, trb.env.action_dim), device=dev)
+        parts = {
+            "learn": lambda: trb.sac.learn(c.sac_state, batch,
+                                           generator=c.rng),
+            "env_step": lambda: trb.env.step(c.env_state, zeros)}
+        part = {}
+        for name, fn in parts.items():
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(PART_REPS):
+                fn()
+            torch.cuda.synchronize()
+            part[f"{name}_host_ms"] = round(
+                1e3 * (time.perf_counter() - t) / PART_REPS, 4)
+            pp = profiler.device_breakdown(fn, reps=5)
+            part[f"{name}_kernels"] = pp["kernels_per_call"]
+            part[f"{name}_device_ms"] = round(pp["device_ms_per_call"], 4)
+        log("train_bench", **r, chunk_steps=TRAIN_CHUNK, iters=BENCH_ITERS,
+            kernels_per_control_step=prof["kernels_per_call"],
+            physics_launches_per_control_step=prof["match_launches_per_call"],
+            device_ms_per_control_step=round(prof["device_ms_per_call"], 4),
+            wall_ms_per_control_step=round(prof["wall_ms_per_call"], 4),
+            device_busy_share=round(prof["device_busy_share"], 4),
+            **part,
+            top=json.dumps(prof["top"]), card=repr(card))
+        if prof["match_launches_per_call"] != 1.0:
+            raise RuntimeError("a control step of the chunk did not launch "
+                               "the physics kernel once")
+        del trb, holder, c
+    return launches
 
 
 def hri_phases(dev, card) -> dict:

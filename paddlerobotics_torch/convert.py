@@ -13,7 +13,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from paddlerobotics_torch.algos.networks import Actor
+from paddlerobotics_torch.algos.networks import Actor, Critic
+from paddlerobotics_torch.algos.sac import SAC, SACState
+from paddlerobotics_torch.core.config import SACConfig
 from paddlerobotics_torch.core.device import resolve_device
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig)
@@ -141,3 +143,94 @@ def scene_from_flax(variables_np: Mapping, num_classes: int = 80,
     scene = SceneSensor(num_classes, input_size, device=device)
     load_flax(scene.model, variables_np)
     return scene
+
+
+def critic_from_flax(params_np: Mapping, obs_dim: int, layer_norm: bool = False,
+                     device: str | torch.device | None = None) -> Critic:
+    """Flax twin-Q ``Critic`` params (``Dense_0..Dense_5``, ``LN_0..LN_3``
+    with ``layer_norm``) → the port's Critic, on the card unless
+    ``device`` says otherwise."""
+    p = params_np.get("params", params_np)
+    k0 = np.asarray(p["Dense_0"]["kernel"])
+    critic = Critic(obs_dim, k0.shape[0] - obs_dim, hidden=k0.shape[1],
+                    layer_norm=layer_norm, device=device)
+    _load_leaves(critic, params_np)
+    return critic
+
+
+def flax_leaves(module: torch.nn.Module):
+    """(parameter, flax path, transposed) for every parameter of
+    ``module``, in ``module.parameters()`` order (the order of its
+    optimiser's state). Linear ``weight`` ↔ ``kernel`` (transposed),
+    LayerNorm ``weight`` ↔ ``scale``; the Actor's ``dense.i`` ↔
+    ``Dense_i``."""
+    kinds = dict(module.named_modules())
+    out = []
+    for name, prm in module.named_parameters():
+        mod, leaf = name.rsplit(".", 1)
+        linear = isinstance(kinds[mod], torch.nn.Linear)
+        if leaf == "weight":
+            leaf = "kernel" if linear else "scale"
+        path = tuple(mod.replace("dense.", "Dense_").split(".")) + (leaf,)
+        out.append((prm, path, linear and leaf == "kernel"))
+    return out
+
+
+def _leaf(tree: Mapping, path):
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree, np.float32)
+
+
+def _adam_state(opt: torch.optim.Adam, leaves, adam) -> None:
+    """Load optax ``ScaleByAdamState(count, mu, nu)`` into a torch Adam
+    over the parameters of ``leaves`` (``flax_leaves`` order; an empty
+    path for a bare array such as log_alpha)."""
+    def moment(tree, path, transposed):
+        a = _leaf(tree.get("params", tree), path) if path else \
+            np.asarray(tree, np.float32)
+        return a.T if transposed else a
+
+    state = {}
+    for i, (prm, path, transposed) in enumerate(leaves):
+        state[i] = {"step": torch.tensor(float(np.asarray(adam.count)),
+                                         dtype=torch.float32),
+                    "exp_avg": _t(moment(adam.mu, path, transposed),
+                                  prm.device),
+                    "exp_avg_sq": _t(moment(adam.nu, path, transposed),
+                                     prm.device)}
+    opt.load_state_dict({"state": state,
+                         "param_groups": opt.state_dict()["param_groups"]})
+
+
+def _load_leaves(module: torch.nn.Module, params_np: Mapping) -> None:
+    p = params_np.get("params", params_np)
+    with torch.no_grad():
+        for prm, path, transposed in flax_leaves(module):
+            a = _leaf(p, path)
+            prm.copy_(_t(a.T if transposed else a, prm.device))
+
+
+def sac_from_flax(state_np, obs_dim: int, action_dim: int,
+                  cfg: SACConfig = SACConfig(),
+                  device: str | torch.device | None = None) -> SACState:
+    """A JAX ``SACState`` as numpy arrays (``jax.tree.map(np.asarray, s)``)
+    → the port's SAC state, on the card unless ``device`` says otherwise.
+
+    Takes the actor, critic and target params, ``log_alpha``, and the three
+    optax Adam states as optax builds them, ``(ScaleByAdamState(count, mu,
+    nu), EmptyState())``: μ and ν become torch Adam's ``exp_avg`` and
+    ``exp_avg_sq`` (Dense kernels transposed), count its ``step``."""
+    state = SAC(obs_dim, action_dim, cfg, device=device).init(None)
+    _load_leaves(state.actor, state_np.actor_params)
+    _load_leaves(state.critic, state_np.critic_params)
+    _load_leaves(state.target_critic, state_np.target_critic_params)
+    with torch.no_grad():
+        state.log_alpha.copy_(_t(state_np.log_alpha, state.log_alpha.device))
+    _adam_state(state.actor_opt, flax_leaves(state.actor),
+                state_np.actor_opt[0])
+    _adam_state(state.critic_opt, flax_leaves(state.critic),
+                state_np.critic_opt[0])
+    _adam_state(state.alpha_opt, [(state.log_alpha, (), False)],
+                state_np.alpha_opt[0])
+    return state

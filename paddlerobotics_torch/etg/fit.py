@@ -87,3 +87,32 @@ def opt_with_points(cfg: ETGConfig,
     w = torch.stack([x, torch.zeros(H, device=A.device), z], dim=0)
     b3 = torch.stack([b[0], torch.zeros((), device=A.device), b[1]])
     return w, b3
+
+
+def batched_opt_with_points(cfg: ETGConfig, points_batch, w0, b0,
+                            lamb: float = 0.5, device=None):
+    """``opt_with_points`` over a population of control-point sets at once
+    (the JAX package vmaps it): one (6,6) system with P right-hand sides
+    per coordinate.
+
+    points_batch (P, 6, 2), w0 (3,H), b0 (3,) → (w (P,3,H), b (P,3)) on
+    ``resolve_device(device)``: the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+    pts, w0, b0 = f32(points_batch), f32(w0), f32(b0)
+    A = basis_matrix(cfg, device=device)
+    b = torch.stack([b0[0], b0[-1]])
+    pt = pts - b                                  # (P,6,2)
+    n = A.shape[0]
+    M = A @ A.T + lamb * torch.eye(n, dtype=A.dtype, device=device)
+
+    def fit(col, w0r):                            # col (P,6), w0r (H,)
+        alpha = torch.linalg.solve(M, (col - A @ w0r).T)     # (6,P)
+        return (w0r[:, None] + A.T @ alpha).T                # (P,H)
+
+    x = fit(pt[..., 0], w0[0])
+    z = fit(pt[..., 1], w0[-1])
+    w = torch.stack([x, torch.zeros_like(x), z], dim=1)
+    zero = torch.zeros((), device=device)
+    b3 = torch.stack([b[0], zero, b[1]]).expand(pts.shape[0], 3)
+    return w, b3

@@ -47,7 +47,10 @@ def device_breakdown(fn: Callable[[], object], reps: int, top: int = 6,
         per_kernel = collections.Counter()
         count = matched = 0
         for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
+            # ranges such as ``Optimizer.step`` are recorded on the device
+            # too, over the kernels they hold: not kernels themselves
+            if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                    getattr(ev, "is_user_annotation", False):
                 continue
             count += 1
             matched += bool(match and match in ev.name)

@@ -5,12 +5,15 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 
 import pytest
 import torch
 
 from paddlerobotics_torch import convert
+from paddlerobotics_torch.algos import es, replay
 from paddlerobotics_torch.algos.networks import Actor
+from paddlerobotics_torch.algos.sac import SAC
 from paddlerobotics_torch.core.config import QuadrupedConfig
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
 from paddlerobotics_torch.etg import fit
@@ -20,8 +23,10 @@ from paddlerobotics_torch.hri.perception.scene import SceneSensor
 from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
                                               ServiceConfig)
 from paddlerobotics_torch.sim import sbatch
+from paddlerobotics_torch.train.etg_rl import ETGRLTrainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+_OUTDIR = os.path.join(tempfile.gettempdir(), "torch_isolation_trainer")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -44,7 +49,7 @@ def test_port_imports_no_jax():
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 44, out.stdout
+    assert int(n) >= 56, out.stdout
     assert bad == "[]", out.stdout
 
 
@@ -97,6 +102,15 @@ _ENTRY_POINTS = {
         _dyn_fields(), **kw).motor_kp,
     "robot_from_numpy": lambda **kw: convert.robot_from_numpy(
         _robot_fields(), **kw).s.q,
+    "SAC": lambda **kw: SAC(49, 12, **kw),
+    "replay.create": lambda **kw: replay.create(16, 49, 12, **kw),
+    "ETGRLTrainer": lambda **kw: ETGRLTrainer(
+        QuadrupedConfig(), num_envs=8, outdir=_OUTDIR, **kw),
+    **{f"es.{name}.init": (lambda cls: lambda **kw: cls(12, popsize=4).init(
+        **kw).sigma)(cls) for name, cls in es.SOLVERS.items()},
+    "batched_opt_with_points": lambda **kw: fit.batched_opt_with_points(
+        QuadrupedConfig().etg, torch.zeros(2, 6, 2), torch.zeros(3, 20),
+        torch.zeros(3), **kw)[0],
 }
 
 

@@ -106,3 +106,54 @@ def assert_match(rb_j, rb_t):
 def target(B, offset):
     return (np.broadcast_to(ja1.INIT_MOTOR_ANGLES[:, None], (12, B))
             + offset).astype(np.float32)
+
+
+def _flax_leaf(tree, path):
+    tree = tree.get("params", tree)
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def assert_module_matches(module, params, atol, err=""):
+    """Every parameter of a port module against its flax leaf."""
+    for prm, path, transposed in convert.flax_leaves(module):
+        p = prm.detach().cpu().numpy()
+        np.testing.assert_allclose(p.T if transposed else p,
+                                   _flax_leaf(params, path), atol=atol,
+                                   err_msg=f"{err} {'/'.join(path)}")
+
+
+def assert_adam_matches(opt, module, adam, atol, err=""):
+    """A torch Adam's moments and step against optax's ScaleByAdamState
+    (``module`` names the flax paths; None for the scalar log_alpha)."""
+    params = opt.param_groups[0]["params"]
+    leaves = (convert.flax_leaves(module) if module is not None
+              else [(params[0], (), False)])
+    for prm, path, transposed in leaves:
+        st = opt.state[prm]
+        assert float(st["step"]) == int(np.asarray(adam.count)), err
+        for ours, theirs in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+            t = st[ours].detach().cpu().numpy()
+            j = _flax_leaf(theirs, path) if path else np.asarray(theirs)
+            np.testing.assert_allclose(t.T if transposed else t, j,
+                                       atol=atol,
+                                       err_msg=f"{err} {ours} {path}")
+
+
+def assert_sac_matches(ts, js, atol):
+    """A port SACState against a JAX SACState: weights, targets, the three
+    Adam states and log_alpha."""
+    assert_module_matches(ts.actor, js.actor_params, atol, "actor")
+    assert_module_matches(ts.critic, js.critic_params, atol, "critic")
+    assert_module_matches(ts.target_critic, js.target_critic_params, atol,
+                          "target")
+    assert_adam_matches(ts.actor_opt, ts.actor, js.actor_opt[0], atol,
+                        "actor_opt")
+    assert_adam_matches(ts.critic_opt, ts.critic, js.critic_opt[0], atol,
+                        "critic_opt")
+    assert_adam_matches(ts.alpha_opt, None, js.alpha_opt[0], atol,
+                        "alpha_opt")
+    np.testing.assert_allclose(float(ts.log_alpha.detach()),
+                               float(js.log_alpha),
+                               atol=atol)
