@@ -11,8 +11,9 @@ to 0 just before it and read just after:
   (2×256 SAC, batch 256, 1M-row replay, SimpleGA popsize 40 on 320 ES
   envs), depth cut, through a cold chunk, warm chunks, an eval window with
   its checkpoint and an ES phase (one physics launch per control step of
-  each); a warm chunk through the kernel against the same chunk through
-  the plain physics; ``cli.train_bench``'s two schedules;
+  each); a warm chunk, and an ES population rollout on the 320 ES envs,
+  through the kernel against the same through the plain physics;
+  ``cli.train_bench``'s two schedules;
 - HRI serving: ``ProactiveGreetingService.process_frame`` with YOLOv4 at
   416² and the 317-action attention controller at its default widths (6
   attention launches per decided frame), then ``STEADY_FRAMES`` decided
@@ -83,6 +84,11 @@ TRAIN_CHUNK = 10                        # control steps per chunk
 TRAIN_EPISODE = 100                     # eval and ES episode length
 TRAIN_ES_GENS = 1                       # ES generations per ES phase
 VS_PLAIN_STEPS = 5
+ES_VS_PLAIN_STEPS = 20                  # es_eval steps, kernel vs plain
+# es_eval's fitness is a segment sum by index_add_, whose float atomics
+# add an ES candidate's envs in any order: kernel and plain runs may differ
+# by that rounding alone (the replay rows it writes are compared exactly)
+ES_FIT_RTOL = 1e-5
 # kernel vs plain physics after VS_PLAIN_STEPS warm steps: the kernel is
 # bit-equal to its plain version, so the weights may differ only by the
 # learner's own run-to-run rounding
@@ -95,6 +101,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 def log(phase: str, **kw):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
+
+
+def es_batch(ecfg) -> int:
+    """The ES envs' batch, as ``ETGRLTrainer`` sizes it: es_num_envs
+    rounded down to a multiple of the popsize."""
+    return max(ecfg.popsize, ecfg.es_num_envs // ecfg.popsize * ecfg.popsize)
 
 
 def card_line() -> str:
@@ -226,6 +238,8 @@ def main() -> int:
         ("balance_beam", {}, "balance_beam", 2, {}),
         # lanes past B in the last block, through every barrier
         ("tail", {}, "ground", 40, {"dr": True, "B": TAIL_B}),
+        # the ES population rollout's batch (10 blocks), nominal dynamics
+        ("es_envs", {}, "ground", 2, {"B": es_batch(QuadrupedConfig().es)}),
     ]
     worst, failed = 0.0, []
     for name, simkw, mode, L, kw in cases:
@@ -614,25 +628,47 @@ def train_phases(dev, card) -> int:
         raise RuntimeError("checkpoint does not hold the actor")
     del carry, tr, restored
 
-    # --- the same warm chunk through the kernel and through the plain physics
+    # --- the same warm chunk and ES population rollout through the kernel
+    # and through the plain physics
+    trv = etg_rl.ETGRLTrainer(base, num_envs=B, outdir=str(
+        out_root / "train_vs_plain"), updates_per_step=TRAIN_K, device=dev)
+    P = base.es.popsize
+    es_sols, _ = trv.solver.ask(trv.solver.init(
+        torch.zeros(base.es.num_params, device=dev), device=dev),
+        torch.Generator(device=dev).manual_seed(5))
+    es_w, es_b = trv.fit_etg_population(es_sols)
+    kern_step = physics_step.control_step
+
     def chunk():
-        trv = etg_rl.ETGRLTrainer(base, num_envs=B, outdir=str(
-            out_root / "train_vs_plain"), updates_per_step=TRAIN_K,
-            device=dev)
         c, _, _ = trv.init_carry(7)
-        c, out = trv.rollout_chunk(c, base.train.e_step, VS_PLAIN_STEPS, True)
+        out = trv.rollout_chunk(c, base.train.e_step, VS_PLAIN_STEPS, True)
         torch.cuda.synchronize()
         return c, out
 
-    physics_step.control_step.launches = 0
+    def es_run(actor):
+        # an ES population rollout on the 320 ES envs, its replay rows in
+        # a buffer of their own
+        es_buf = replay.create(ES_VS_PLAIN_STEPS * P, trv.env.obs_dim,
+                               trv.env.action_dim, device=dev)
+        es = trv.es_eval(actor, es_w, es_b,
+                         torch.Generator(device=dev).manual_seed(9),
+                         ES_VS_PLAIN_STEPS, P, es_buf)
+        torch.cuda.synchronize()
+        return es, es_buf
+
+    kern_step.launches = 0
     ck, out_k = chunk()
-    launches_k = physics_step.control_step.launches
-    orig = physics_step.control_step
+    launches_k = kern_step.launches
+    es_actor = ck.sac_state.actor           # both ES runs roll this policy
+    kern_step.launches = 0
+    es_k, es_buf_k = es_run(es_actor)
+    launches_es = kern_step.launches
     physics_step.control_step = sbatch.control_step     # the env's call
     try:
         cp, out_p = chunk()
+        es_p, es_buf_p = es_run(es_actor)
     finally:
-        physics_step.control_step = orig
+        physics_step.control_step = kern_step
     row_diff = (ck.buffer.data[:B] - cp.buffer.data[:B]).abs().max().item()
     param_diff = max(
         (a - c).abs().max().item()
@@ -652,12 +688,30 @@ def train_phases(dev, card) -> int:
                           "the learner (cuBLAS GEMM, Adam) on bit-equal "
                           "replay rows" if rows_all == 0 else
                           "the env step after the first"))
-    if launches_k != VS_PLAIN_STEPS:
-        raise RuntimeError(f"{launches_k} launches for {VS_PLAIN_STEPS} steps")
+    fit_diff = (es_k[0] - es_p[0]).abs().max().item()
+    fit_scale = max(1.0, es_p[0].abs().max().item())
+    len_diff = (es_k[1] - es_p[1]).abs().max().item()
+    es_rows = (es_buf_k.data - es_buf_p.data).abs().max().item()
+    log("es_eval_vs_plain", B=trv.es_B, popsize=P, steps=ES_VS_PLAIN_STEPS,
+        kernel_launches=launches_es,
+        fitness_max_abs_diff=fit_diff, fitness_max_abs=fit_scale,
+        fitness_rtol=ES_FIT_RTOL, episode_length_max_abs_diff=len_diff,
+        replay_rows=es_buf_k.size, replay_max_abs_diff=es_rows,
+        fitness_kernel_mean=es_k[0].mean().item(),
+        fitness_plain_mean=es_p[0].mean().item(),
+        finite=bool(torch.isfinite(es_k[0]).all().item()))
+    if (launches_k, launches_es) != (VS_PLAIN_STEPS, ES_VS_PLAIN_STEPS):
+        raise RuntimeError(f"{launches_k} + {launches_es} launches for "
+                           f"{VS_PLAIN_STEPS} + {ES_VS_PLAIN_STEPS} steps")
     if row_diff != 0.0 or param_diff > TRAIN_PARAM_TOL:
         raise RuntimeError("training through the kernel disagrees with the "
                            "plain physics")
-    del ck, cp
+    if (es_rows != 0.0 or len_diff != 0.0 or fit_diff > ES_FIT_RTOL * fit_scale
+            or es_buf_k.size != ES_VS_PLAIN_STEPS * P
+            or not torch.isfinite(es_k[0]).all()):
+        raise RuntimeError("the ES rollout through the kernel disagrees with "
+                           "the plain physics")
+    del ck, cp, trv, es_buf_k, es_buf_p
 
     # --- the port's train_bench schedules, one profiled control step each ---
     for tag, Bs, Ks in train_bench.SCHEDULES:
@@ -666,18 +720,17 @@ def train_phases(dev, card) -> int:
                                        device=dev)
         trb = train_bench.make_trainer(Bs, Ks, str(out_root / "bench_prof"),
                                        device=dev)
-        holder = list(trb.init_carry(0)[:1])
-        holder[0] = trb.rollout_chunk(holder[0], 600, 1, True)[0]
+        c = trb.init_carry(0)[0]
+        trb.rollout_chunk(c, 600, 1, True)
 
         def one_step():
-            holder[0] = trb.rollout_chunk(holder[0], 600, 1, True)[0]
+            trb.rollout_chunk(c, 600, 1, True)
 
         prof = profiler.device_breakdown(one_step, reps=3,
                                          match="control_step_kernel")
         # the chunk's two parts apart, on the host clock up to a
         # synchronize after PART_REPS calls and under the profiler: one SAC
         # update, one env step
-        c = holder[0]
         batch = {f: v[0] for f, v in replay.sample_many(
             c.buffer, 1, trb.cfg.sac.batch_size, generator=c.rng).items()}
         zeros = torch.zeros((Bs, trb.env.action_dim), device=dev)
@@ -709,7 +762,7 @@ def train_phases(dev, card) -> int:
         if prof["match_launches_per_call"] != 1.0:
             raise RuntimeError("a control step of the chunk did not launch "
                                "the physics kernel once")
-        del trb, holder, c
+        del trb, c
     return launches
 
 

@@ -5,14 +5,16 @@ One preallocated (N, obs+act+1+obs+1) float32 tensor on the card holds the
 transitions (1,000,000 × 112 floats = 448 MB at the default width), so
 ``sample_many`` gathers every row of K batches in one indexed read. The
 write pointer and fill level are host integers: they follow from the batch
-sizes alone, so no step reads them back from the card. ``add_batch``
-writes into the same tensor and returns the buffer with the new counters.
+sizes alone, so no step reads them back from the card. Unlike JAX's
+functional buffer, ``add_batch`` writes into the tensor and advances the
+counters in place, and returns nothing.
 The BC buffer comes with the BC trainer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 
@@ -21,7 +23,8 @@ from paddlerobotics_torch.core.device import resolve_device
 FIELDS = ("obs", "act", "rew", "next_obs", "terminal")
 
 
-class ReplayBuffer(NamedTuple):
+@dataclasses.dataclass
+class ReplayBuffer:
     data: torch.Tensor      # (N, obs | act | rew | next_obs | terminal)
     obs_dim: int
     act_dim: int
@@ -57,10 +60,9 @@ def create(capacity: int, obs_dim: int, act_dim: int,
     return ReplayBuffer(data, obs_dim, act_dim, 0, 0)
 
 
-def add_batch(buf: ReplayBuffer, obs, act, rew, next_obs, terminal
-              ) -> ReplayBuffer:
-    """Append B transitions at ``(ptr + arange(B)) % N`` (ring semantics);
-    ``rew`` and ``terminal`` may be (B,) or (B, 1)."""
+def add_batch(buf: ReplayBuffer, obs, act, rew, next_obs, terminal) -> None:
+    """Append B transitions at ``(ptr + arange(B)) % N`` (ring semantics),
+    in place; ``rew`` and ``terminal`` may be (B,) or (B, 1)."""
     N, B = buf.capacity, obs.shape[0]
     rows = torch.cat([obs, act, rew.reshape(B, 1), next_obs,
                       terminal.reshape(B, 1)], dim=1)
@@ -69,7 +71,7 @@ def add_batch(buf: ReplayBuffer, obs, act, rew, next_obs, terminal
     else:
         idx = (buf.ptr + torch.arange(B, device=buf.device)) % N
         buf.data.index_copy_(0, idx, rows)
-    return buf._replace(ptr=(buf.ptr + B) % N, size=min(buf.size + B, N))
+    buf.ptr, buf.size = (buf.ptr + B) % N, min(buf.size + B, N)
 
 
 def _indices(buf, n, idx, generator):

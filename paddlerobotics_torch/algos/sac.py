@@ -5,17 +5,20 @@ reparameterised sample and the −log(1−tanh²+1e−6) correction; twin-Q
 targets min(Q1', Q2') − α·logπ bootstrapped through the ``terminal``
 (1−done) mask; the actor updated against the critic after its update;
 optional auto-α on the actor-loss noise; Polyak target sync with τ; Adam on
-actor, critic and α. The state holds modules and ``torch.optim.Adam``
-optimisers and ``learn`` updates it in place (and returns it). Every draw
-comes from an explicit ``torch.Generator`` or is passed in pre-drawn, so a
-test can feed JAX's draws.
+actor, critic and α. Unlike JAX's functional ``SACState``, the state here
+holds modules and ``torch.optim.Adam`` optimisers, and ``learn`` and
+``reset_critic`` update it in place and return no state: a caller that
+keeps an earlier state takes a ``copy.deepcopy``. Every draw comes from an
+explicit ``torch.Generator`` or is passed in pre-drawn, so a test can feed
+JAX's draws.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,7 +31,10 @@ from paddlerobotics_torch.core.device import resolve_device
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
-class SACState(NamedTuple):
+@dataclasses.dataclass
+class SACState:
+    """The learner's live state, updated in place by ``SAC.learn`` and
+    ``SAC.reset_critic``."""
     actor: nn.Module
     critic: Critic
     target_critic: Critic
@@ -109,14 +115,13 @@ class SAC:
             alpha_opt=torch.optim.Adam([log_alpha], lr=cfg.alpha_lr))
 
     def reset_critic(self, state: SACState,
-                     generator: torch.Generator) -> SACState:
-        """Full critic re-initialisation (primacy-bias reset): fresh twin-Q
-        weights, target copy and optimiser state; the actor (and the replay
-        buffer, held by the caller) untouched (SACConfig.critic_reset_steps)."""
-        critic, target, critic_opt = self._critic_parts(
-            self._critic(generator))
-        return state._replace(critic=critic, target_critic=target,
-                              critic_opt=critic_opt)
+                     generator: torch.Generator) -> None:
+        """Full critic re-initialisation in place (primacy-bias reset):
+        fresh twin-Q weights, target copy and optimiser state; the actor
+        (and the replay buffer, held by the caller) untouched
+        (SACConfig.critic_reset_steps)."""
+        state.critic, state.target_critic, state.critic_opt = \
+            self._critic_parts(self._critic(generator))
 
     def alpha(self, state: SACState):
         """The live temperature: exp(log_alpha) when auto-tuned or
@@ -133,7 +138,7 @@ class SAC:
     def learn(self, state: SACState, batch: Dict[str, torch.Tensor],
               noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               generator: Optional[torch.Generator] = None
-              ) -> Tuple[SACState, Dict[str, torch.Tensor]]:
+              ) -> Dict[str, torch.Tensor]:
         """One critic, actor, α and target update (sac.py:77-110), in place.
 
         batch: obs (b,o), act (b,a), rew (b,1), next_obs (b,o), terminal
@@ -141,7 +146,7 @@ class SAC:
         (next_noise, pi_noise), the two standard normal (b,a) draws of the
         target's and the actor loss's samples (JAX's k_next, k_pi); the
         auto-α update reuses pi_noise. Drawn from ``generator`` when not
-        given. Returns the state and the two losses as 0-d tensors."""
+        given. Returns the two losses as 0-d tensors."""
         cfg = self.cfg
         if noise is None:
             shape = (batch["obs"].shape[0], self.action_dim)
@@ -191,5 +196,5 @@ class SAC:
             torch._foreach_mul_(tgt, 1.0 - cfg.tau)
             torch._foreach_add_(tgt, torch._foreach_mul(
                 list(state.critic.parameters()), cfg.tau))
-        return state, {"critic_loss": critic_loss.detach(),
-                       "actor_loss": actor_loss.detach()}
+        return {"critic_loss": critic_loss.detach(),
+                "actor_loss": actor_loss.detach()}

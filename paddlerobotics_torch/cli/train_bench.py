@@ -48,11 +48,11 @@ def bench_schedule(tag: str, B: int, K: int, chunk_steps: int, iters: int,
                    outdir: str, bf16: bool = False, device=None) -> dict:
     tr = make_trainer(B, K, os.path.join(outdir, tag), bf16, device)
     carry, _, _ = tr.init_carry(0)
-    carry, out = tr.rollout_chunk(carry, 600, chunk_steps, True)  # warm-up
+    tr.rollout_chunk(carry, 600, chunk_steps, True)                # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        carry, out = tr.rollout_chunk(carry, 600, chunk_steps, True)
+        out = tr.rollout_chunk(carry, 600, chunk_steps, True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if not torch.isfinite(out["critic_loss"]):

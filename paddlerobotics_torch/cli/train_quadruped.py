@@ -321,8 +321,8 @@ def main(argv=None):
         if not args.load:
             raise SystemExit("--eval requires --load <checkpoint file>")
         restored = checkpoints.restore(args.load, device=trainer.device)
-        sac_state = checkpoints.load_sac_state(trainer.sac.init(None),
-                                               restored["sac"])
+        sac_state = trainer.sac.init(None)
+        checkpoints.load_sac_state(sac_state, restored["sac"])
         w, b = trainer.fit_etg(restored["etg_param"])
         ret, steps, infos = trainer.evaluate(sac_state.actor, w, b,
                                              cfg.train.eval_episode_len)

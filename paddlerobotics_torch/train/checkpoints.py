@@ -26,14 +26,13 @@ def sac_state_dict(state: SACState) -> Dict[str, Any]:
     return out
 
 
-def load_sac_state(state: SACState, sd: Dict[str, Any]) -> SACState:
-    """Copy a ``sac_state_dict`` into ``state``'s modules and optimisers
-    (in place; returns the state)."""
+def load_sac_state(state: SACState, sd: Dict[str, Any]) -> None:
+    """Copy a ``sac_state_dict`` into ``state``'s modules and optimisers,
+    in place."""
     for k in _MODULES:
         getattr(state, k).load_state_dict(sd[k])
     with torch.no_grad():
         state.log_alpha.copy_(sd["log_alpha"])
-    return state
 
 
 def save(path: str, sac_state: SACState, etg_w, etg_b, etg_param,

@@ -24,16 +24,23 @@ and deployment share (run_evaluate_episodes, train.py:182-211).
 
 Randomness: every draw comes from an explicit ``torch.Generator``;
 ``rollout_chunk`` also takes its draws pre-drawn, step by step, so a test
-can feed it JAX's. Multi-device training (the JAX trainer's ``mesh``) comes
+can feed it JAX's.
+
+State: unlike the JAX trainer's functional carry, ``TrainCarry``, the SAC
+state and the replay buffer are updated in place (``rollout_chunk``,
+``SAC.learn``, ``replay.add_batch``); none of them returns a new one. A
+caller that keeps an earlier state takes a ``copy.deepcopy``, as
+``keep_best_eval`` does. Multi-device training (the JAX trainer's ``mesh``) comes
 with the ``torch.distributed`` slice.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,7 +168,9 @@ def _build_solver(ecfg):
     raise ValueError(f"unknown ES solver {name!r}")
 
 
-class TrainCarry(NamedTuple):
+@dataclasses.dataclass
+class TrainCarry:
+    """The training loop's live state, updated in place."""
     env_state: object            # BEnvState (or ObsHistoryState)
     obs: torch.Tensor
     sac_state: SACState
@@ -303,11 +312,11 @@ class ETGRLTrainer:
 
     def rollout_chunk(self, carry: TrainCarry, e_step: int, n_steps: int,
                       warm: bool, draws: Optional[Sequence[dict]] = None
-                      ) -> Tuple[TrainCarry, Dict[str, torch.Tensor]]:
+                      ) -> Dict[str, torch.Tensor]:
         """``n_steps`` control steps of rollout + replay write + (warm) K
-        SAC updates each; returns the carry and the per-step means averaged
-        over the chunk (0-d tensors on the card; nothing is read back to
-        the host inside the loop).
+        SAC updates each, advancing ``carry`` in place; returns the
+        per-step means averaged over the chunk (0-d tensors on the card;
+        nothing is read back to the host inside the loop).
 
         ``draws``: one dict per step replacing the carry's generator —
         warm: ``act`` (B,a) standard normal, ``idx`` (K·batch,) replay
@@ -315,7 +324,8 @@ class ETGRLTrainer:
         (B,a) in [−1, 1), ``gait`` (B,a) standard normal."""
         env, cfg, B, K = self.env, self.cfg, self.B, self.updates_per_step
         a_dim, dev = self.env.action_dim, self.device
-        env_state, obs, state, buf, gen = carry
+        env_state, obs = carry.env_state, carry.obs
+        state, buf, gen = carry.sac_state, carry.buffer, carry.rng
         first = lambda frac: (torch.arange(B, device=dev)
                               < int(frac * B))[:, None]
         outs = []
@@ -353,7 +363,7 @@ class ETGRLTrainer:
                     env_state, action * self.act_bound + self.act_offset,
                     donef)
                 terminal = 1.0 - done.to(torch.float32)  # train.py:148-149
-                buf = replay.add_batch(buf, obs, action, rew, nobs, terminal)
+                replay.add_batch(buf, obs, action, rew, nobs, terminal)
             out = {"reward": torch.mean(rew),
                    "done_frac": torch.mean(done.to(torch.float32)),
                    **{k: torch.mean(info[k]) for k in INFO_CHANNELS}}
@@ -364,11 +374,10 @@ class ETGRLTrainer:
                                              generator=gen, idx=d.get("idx"))
                 losses = []
                 for k in range(K):
-                    state, l_k = self.sac.learn(
+                    losses.append(self.sac.learn(
                         state, {f: v[k] for f, v in batches.items()},
                         noise=d["learn"][k] if "learn" in d else None,
-                        generator=gen)
-                    losses.append(l_k)
+                        generator=gen))
                 for name in ("critic_loss", "actor_loss"):
                     out[name] = torch.mean(torch.stack(
                         [l_k[name] for l_k in losses]))
@@ -377,9 +386,9 @@ class ETGRLTrainer:
                     torch.zeros((), device=dev)
             outs.append(out)
             obs = nobs
-        mean = {k: torch.mean(torch.stack([o[k] for o in outs]))
+        carry.env_state, carry.obs = env_state, obs
+        return {k: torch.mean(torch.stack([o[k] for o in outs]))
                 for k in outs[0]}
-        return TrainCarry(env_state, obs, state, buf, gen), mean
 
     # -- ES population evaluation --------------------------------------------
 
@@ -393,7 +402,8 @@ class ETGRLTrainer:
         deterministic policy (run_EStrain_episode, train.py:213-249).
         Returns per-candidate mean return and mean episode length; with
         ``buffer`` (--es_rpm, train.py:240-241) the first env of each
-        candidate also feeds replay (P transitions per step)."""
+        candidate also feeds replay (P transitions per step, written in
+        place)."""
         B, P, dev = self.es_B, popsize, self.device
         per = B // P
         cand = torch.clamp(torch.arange(B, device=dev) // per, max=P - 1)
@@ -416,7 +426,7 @@ class ETGRLTrainer:
                 state, action * self.act_bound + self.act_offset,
                 autoreset=False)
             if buffer is not None:
-                buffer = replay.add_batch(
+                replay.add_batch(
                     buffer, obs[sub], action[sub], rew[sub], nobs[sub],
                     1.0 - done[sub].to(torch.float32))
             ret = ret + rew * alive
@@ -424,7 +434,7 @@ class ETGRLTrainer:
             alive = alive * (1.0 - done.to(torch.float32))
             obs = nobs
         seg = lambda x: torch.zeros(P, device=dev).index_add_(0, cand, x)
-        return seg(ret) / per, seg(steps) / per, buffer
+        return seg(ret) / per, seg(steps) / per
 
     # -- evaluation ----------------------------------------------------------
 
@@ -486,8 +496,8 @@ class ETGRLTrainer:
                    and not dr_adaptive)
         adr = AdaptiveDRController(rcfg) if dr_adaptive else None
         if dr_curr or dr_adaptive:
-            carry = carry._replace(env_state=self._set_dr_scale(
-                carry.env_state, rcfg.dr_scale_start))
+            carry.env_state = self._set_dr_scale(carry.env_state,
+                                                 rcfg.dr_scale_start)
 
         while total_steps < max_steps:
             warm = total_steps >= cfg.sac.warmup_steps
@@ -501,15 +511,13 @@ class ETGRLTrainer:
                 frac = min(1.0, total_steps / rcfg.dr_curriculum_steps)
                 scale = rcfg.dr_scale_start + frac * (
                     rcfg.dynamics_scale - rcfg.dr_scale_start)
-                carry = carry._replace(env_state=self._set_dr_scale(
-                    carry.env_state, scale))
+                carry.env_state = self._set_dr_scale(carry.env_state, scale)
                 self.logger.add_scalar("train/dr_scale", scale, total_steps)
-            carry, out = self.rollout_chunk(carry, e_step, chunk_steps, warm)
+            out = self.rollout_chunk(carry, e_step, chunk_steps, warm)
             out = dict(zip(out, torch.stack(list(out.values())).tolist()))
             if adr is not None:
                 scale = adr.update(out["success"])
-                carry = carry._replace(env_state=self._set_dr_scale(
-                    carry.env_state, scale))
+                carry.env_state = self._set_dr_scale(carry.env_state, scale)
                 self.logger.add_scalar("train/dr_scale", scale, total_steps)
             total_steps += chunk_steps * self.B
             self.logger.add_scalar("train/episode_reward", out["reward"],
@@ -526,8 +534,8 @@ class ETGRLTrainer:
             rst = cfg.sac.critic_reset_steps
             if rst > 0 and total_steps // rst > reset_flag and warm:
                 reset_flag = total_steps // rst
-                carry = carry._replace(sac_state=self.sac.reset_critic(
-                    carry.sac_state, _seeded(dev, 911, reset_flag)))
+                self.sac.reset_critic(carry.sac_state,
+                                      _seeded(dev, 911, reset_flag))
                 self.logger.add_scalar("train/critic_reset", 1.0,
                                        total_steps)
 
@@ -543,6 +551,7 @@ class ETGRLTrainer:
                                        total_steps)
                 if tcfg.keep_best_eval and (avg_steps, avg_ret) > best_key:
                     best_key = (avg_steps, avg_ret)
+                    # the live state moves on in place: keep a copy
                     best_snap = (copy.deepcopy(carry.sac_state), w, b,
                                  etg_best_param, total_steps)
                 if e_step < tcfg.e_step_max:
@@ -562,12 +571,10 @@ class ETGRLTrainer:
                     solutions, es_state = self.solver.ask(es_state,
                                                           carry.rng)
                     ws, bs = self.fit_etg_population(solutions)
-                    fitness, _, es_buf = self.es_eval(
+                    fitness, _ = self.es_eval(
                         carry.sac_state.actor, ws, bs, carry.rng,
                         cfg.es.es_episode_len, cfg.es.popsize,
                         carry.buffer if cfg.es.es_rpm else None)
-                    if cfg.es.es_rpm:
-                        carry = carry._replace(buffer=es_buf)
                     es_state = self.solver.tell(es_state, fitness)
                     fit_host = fitness.tolist()
                     gen_best = int(np.argmax(fit_host))
@@ -588,8 +595,8 @@ class ETGRLTrainer:
                     es_state = self.solver.reset(es_state, etg_best_param)
                 # refresh the env's ETG for the following SAC rollouts
                 w_env, b_env = self._broadcast_etg(w, b)
-                carry = carry._replace(
-                    env_state=self._set_etg(carry.env_state, w_env, b_env))
+                carry.env_state = self._set_etg(carry.env_state, w_env,
+                                                b_env)
 
         if tcfg.keep_best_eval and best_snap is not None:
             # a final eval-window check so the last policy competes too
@@ -597,7 +604,7 @@ class ETGRLTrainer:
                 carry.sac_state.actor, w, b, tcfg.eval_episode_len)
             if (float(avg_steps), float(avg_ret)) < best_key:
                 sac_best, w, b, etg_best_param, at = best_snap
-                carry = carry._replace(sac_state=sac_best)
+                carry.sac_state = sac_best
                 self.logger.add_scalar("train/best_eval_restored_from",
                                        float(at), total_steps)
         return carry, (w, b, etg_best_param)

@@ -130,7 +130,7 @@ def test_learn_matches_jax(n_learn, auto_alpha):
         noise = tuple(_t(jax.random.normal(kk, (BS, A)))
                       for kk in (k_next, k_pi))
         st, lj = learn(st, {n: jnp.asarray(v) for n, v in batch.items()}, k)
-        ts, lt = tsac.learn(ts, {n: _t(v) for n, v in batch.items()},
+        lt = tsac.learn(ts, {n: _t(v) for n, v in batch.items()},
                             noise=noise)
         for name in ("critic_loss", "actor_loss"):
             np.testing.assert_allclose(float(lt[name]), float(lj[name]),
@@ -160,18 +160,20 @@ def test_reset_critic_keeps_the_actor():
     g = torch.Generator().manual_seed(0)
     st = tsac.init(g)
     tsac.learn(st, {n: _t(v) for n, v in _batch().items()}, generator=g)
+    actor, actor_opt, critic = st.actor, st.actor_opt, st.critic
     actor_before = [p.detach().clone() for p in st.actor.parameters()]
     critic_before = [p.detach().clone() for p in st.critic.parameters()]
-    new = tsac.reset_critic(st, torch.Generator().manual_seed(911))
-    assert new.actor is st.actor and new.actor_opt is st.actor_opt
-    for a, b in zip(new.actor.parameters(), actor_before):
+    tsac.reset_critic(st, torch.Generator().manual_seed(911))
+    assert st.actor is actor and st.actor_opt is actor_opt
+    assert st.critic is not critic
+    for a, b in zip(st.actor.parameters(), actor_before):
         assert torch.equal(a, b)
     assert not all(torch.equal(a, b) for a, b in
-                   zip(new.critic.parameters(), critic_before))
-    for a, b in zip(new.critic.parameters(),
-                    new.target_critic.parameters()):
+                   zip(st.critic.parameters(), critic_before))
+    for a, b in zip(st.critic.parameters(),
+                    st.target_critic.parameters()):
         assert torch.equal(a, b)
-    assert not new.critic_opt.state          # fresh Adam
+    assert not st.critic_opt.state          # fresh Adam
 
 
 def test_replay_ring_and_sample_many_match_jax():
@@ -186,7 +188,7 @@ def test_replay_ring_and_sample_many_match_jax():
                 rng.standard_normal((Bw, O)).astype(np.float32),
                 (rng.random(Bw) > 0.5).astype(np.float32))
         jb = jreplay.add_batch(jb, *map(jnp.asarray, rows))
-        tb = replay.add_batch(tb, *map(_t, rows))
+        replay.add_batch(tb, *map(_t, rows))
         assert (tb.ptr, tb.size) == (int(jb.ptr), int(jb.size))
         for name, v in tb.fields().items():
             np.testing.assert_array_equal(v.numpy(),

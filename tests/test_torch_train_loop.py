@@ -52,8 +52,8 @@ def test_train_writes_the_jax_tags_and_restores(tmp_path):
     target = checkpoints.save(str(tmp_path / "t"), carry.sac_state, w, b,
                               param, 880)
     restored = checkpoints.restore(target)
-    st = checkpoints.load_sac_state(ttr.sac.init(torch.Generator()),
-                                    restored["sac"])
+    st = ttr.sac.init(torch.Generator())
+    checkpoints.load_sac_state(st, restored["sac"])
     for a, c in ((st.actor, carry.sac_state.actor),
                  (st.critic, carry.sac_state.critic),
                  (st.target_critic, carry.sac_state.target_critic)):

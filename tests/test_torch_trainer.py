@@ -11,7 +11,9 @@ differ in the last bits only). The policy is the initial actor scaled by
 0.25: at its full scale some means reach 5 on these observations, tanh
 saturates, and log(1 − a² + 1e-6) turns the last-bit difference between
 XLA's and ATen's tanh into a 0.5% difference of the log prob (ROADMAP
-Queue C). ``es_eval`` (B=8, P=2, 10 steps) agrees on
+Queue C). The trainer's real starting policy, at full scale, is held over
+one warm step at the bounds that conditioning leaves (see
+``test_warm_step_at_full_actor_scale``). ``es_eval`` (B=8, P=2, 10 steps) agrees on
 fitness to 1e-4, on episode length exactly, and writes the same replay
 rows (1e-4). The ADR controller is exact, the CLI runs on the CPU and
 refuses a mesh, and the recurrent modes are wired. The whole ``train()``
@@ -53,11 +55,11 @@ def _t(x):
     return torch.as_tensor(np.array(x))
 
 
-def _jax_draws(rng, warm, a_dim):
+def _jax_draws(rng, warm, a_dim, steps=STEPS):
     """The per-step draws of the JAX chunk, from its carry key."""
     out = []
     size = 0
-    for _ in range(STEPS):
+    for _ in range(steps):
         rng, k_act, k_learn = jax.random.split(rng, 3)
         size = min(size + B, N)
         if warm:
@@ -78,14 +80,14 @@ def _jax_draws(rng, warm, a_dim):
     return out
 
 
-def _start(tmp_path, **sac):
+def _start(tmp_path, actor_scale=0.25, **sac):
     jtr = jetg_rl.ETGRLTrainer(_cfg(jconfig, **sac), num_envs=B,
                                outdir=str(tmp_path / "j"),
                                updates_per_step=K)
     sac_state = jtr.sac.init(jax.random.key(1))
-    # actions away from zero, tanh away from saturation (see above)
+    # 0.25: actions away from zero, tanh away from saturation (see above)
     sac_state = sac_state._replace(actor_params=jax.tree.map(
-        lambda x: 0.25 * x, sac_state.actor_params))
+        lambda x: actor_scale * x, sac_state.actor_params))
     w, b = jtr.fit_etg(jnp.zeros(12))
     env_state, obs = jtr.env.reset(jax.random.key(2),
                                    *jtr._broadcast_etg(w, b))
@@ -97,9 +99,9 @@ def _start(tmp_path, **sac):
                               outdir=str(tmp_path / "t"), updates_per_step=K,
                               device="cpu")
     tcarry, _, _ = ttr.init_carry(0)
-    tcarry = tcarry._replace(sac_state=convert.sac_from_flax(
+    tcarry.sac_state = convert.sac_from_flax(
         jax.tree.map(np.asarray, sac_state), ttr.env.obs_dim,
-        ttr.env.action_dim, ttr.cfg.sac, device="cpu"))
+        ttr.env.action_dim, ttr.cfg.sac, device="cpu")
     np.testing.assert_allclose(tcarry.obs.numpy(), np.asarray(obs),
                                atol=1e-5)
     return jtr, jcarry, ttr, tcarry
@@ -110,7 +112,7 @@ def test_rollout_chunk_matches_jax(tmp_path, warm):
     jtr, jcarry, ttr, tcarry = _start(tmp_path)
     draws = _jax_draws(jcarry.rng, warm, ttr.env.action_dim)
     jcarry, jout = jtr.rollout_chunk(jcarry, 400, STEPS, warm)
-    tcarry, tout = ttr.rollout_chunk(tcarry, 400, STEPS, warm, draws=draws)
+    tout = ttr.rollout_chunk(tcarry, 400, STEPS, warm, draws=draws)
 
     assert set(tout) == set(jout)
     for k in jout:
@@ -131,6 +133,58 @@ def test_rollout_chunk_matches_jax(tmp_path, warm):
         assert float(tout["critic_loss"]) == 0.0
 
 
+# A warm step from the full-scale initial actor. The env side (obs,
+# reward, info means, the replay rows) rolls the same weights and holds
+# ATOL. The learner's side runs through the saturated log prob, whose 0.5%
+# conditioning (see above) the losses carry as measured 0.65% (critic) and
+# 0.11% (actor) relative differences: held at FULL_LOSS_RTOL. Adam's
+# moments, per leaf in relative norm, measured 0.69% (μ) and 1.8% (ν, the
+# squared gradient, about twice μ's): held at 2e-2 and 4e-2. The weights
+# after Adam's normalised steps, measured 1.3e-5 apart: held at ATOL.
+FULL_LOSS_RTOL = 1e-2
+FULL_MU_RTOL, FULL_NU_RTOL = 2e-2, 4e-2
+
+
+def test_warm_step_at_full_actor_scale(tmp_path):
+    from torch_parity import _flax_leaf, assert_module_matches
+
+    jtr, jcarry, ttr, tcarry = _start(tmp_path, actor_scale=1.0)
+    draws = _jax_draws(jcarry.rng, True, ttr.env.action_dim, steps=1)
+    jcarry, jout = jtr.rollout_chunk(jcarry, 400, 1, True)
+    tout = ttr.rollout_chunk(tcarry, 400, 1, True, draws=draws)
+
+    losses = ("critic_loss", "actor_loss")
+    assert set(tout) == set(jout)
+    for k in jout:
+        np.testing.assert_allclose(
+            float(tout[k]), float(jout[k]), atol=ATOL,
+            rtol=FULL_LOSS_RTOL if k in losses else ATOL, err_msg=k)
+    np.testing.assert_allclose(tcarry.obs.numpy(), np.asarray(jcarry.obs),
+                               atol=ATOL, rtol=ATOL)
+    for name, v in tcarry.buffer.fields().items():
+        np.testing.assert_allclose(v.numpy(),
+                                   np.asarray(getattr(jcarry.buffer, name)),
+                                   atol=ATOL, rtol=ATOL, err_msg=name)
+    ts, js = tcarry.sac_state, jcarry.sac_state
+    for mod, params in ((ts.actor, js.actor_params),
+                        (ts.critic, js.critic_params),
+                        (ts.target_critic, js.target_critic_params)):
+        assert_module_matches(mod, params, ATOL)
+    for opt, mod, adam in ((ts.actor_opt, ts.actor, js.actor_opt[0]),
+                           (ts.critic_opt, ts.critic, js.critic_opt[0])):
+        for prm, path, transposed in convert.flax_leaves(mod):
+            st = opt.state[prm]
+            assert float(st["step"]) == int(adam.count) == K
+            for ours, theirs, rtol in (("exp_avg", adam.mu, FULL_MU_RTOL),
+                                       ("exp_avg_sq", adam.nu, FULL_NU_RTOL)):
+                t = st[ours].numpy()
+                j = _flax_leaf(theirs, path)
+                rel = (np.linalg.norm((t.T if transposed else t) - j)
+                       / np.linalg.norm(j))
+                assert rel <= rtol, (ours, path, rel)
+    assert float(ts.log_alpha.detach()) == float(js.log_alpha)
+
+
 def test_es_eval_matches_jax(tmp_path):
     jtr, jcarry, ttr, tcarry = _start(tmp_path)
     P, steps = 2, 10
@@ -141,9 +195,9 @@ def test_es_eval_matches_jax(tmp_path):
                                       jcarry.buffer)
     tws, tbs = ttr.fit_etg_population(_t(sols).float())
     np.testing.assert_allclose(tws.numpy(), np.asarray(ws), atol=1e-5)
-    fit_t, len_t, buf_t = ttr.es_eval(tcarry.sac_state.actor, tws, tbs,
-                                      torch.Generator(), steps, P,
-                                      tcarry.buffer)
+    buf_t = tcarry.buffer
+    fit_t, len_t = ttr.es_eval(tcarry.sac_state.actor, tws, tbs,
+                               torch.Generator(), steps, P, buf_t)
     np.testing.assert_allclose(fit_t.numpy(), np.asarray(fit_j), atol=ATOL)
     np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
     assert (buf_t.ptr, buf_t.size) == (int(buf_j.ptr), int(buf_j.size))
