@@ -14,6 +14,15 @@ to 0 just before it and read just after:
   each); a warm chunk, and an ES population rollout on the 320 ES envs,
   through the kernel against the same through the plain physics;
   ``cli.train_bench``'s two schedules;
+- the rest of the ETG-RL stack through its entry points: ETG pretraining
+  (``cli.pretrain_etg``, 40 candidates on 4,080 envs), the task matrix's
+  train → checkpoint → restore → eval (``cli.eval_matrix.run_task``,
+  B=4096, K=4), gait export (``cli.export_gait``), the deployment loop
+  (``deploy.realtime`` at B=1 with the exported policy and its
+  ``torch.export`` form), behaviour cloning (``cli.bc_train``, B=256) and
+  dynamics identification (``cli.dynamics_id``, 40 candidates, each env
+  its own dynamics), one physics launch per control step of each; each
+  path's rollout also through the plain physics, bit-equal;
 - HRI serving: ``ProactiveGreetingService.process_frame`` with YOLOv4 at
   416² and the 317-action attention controller at its default widths (6
   attention launches per decided frame), then ``STEADY_FRAMES`` decided
@@ -38,6 +47,7 @@ calls' device time under ``torch.profiler`` (the kernel's per launch).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import re
@@ -84,7 +94,9 @@ TRAIN_CHUNK = 10                        # control steps per chunk
 TRAIN_EPISODE = 100                     # eval and ES episode length
 TRAIN_ES_GENS = 1                       # ES generations per ES phase
 VS_PLAIN_STEPS = 5
-ES_VS_PLAIN_STEPS = 20                  # es_eval steps, kernel vs plain
+# es_eval steps, kernel vs plain (each plain step costs ~0.4 s of host
+# dispatch; the deployment loop's 100 plain ticks need the room)
+ES_VS_PLAIN_STEPS = 10
 # es_eval's fitness is a segment sum by index_add_, whose float atomics
 # add an ES candidate's envs in any order: kernel and plain runs may differ
 # by that rounding alone (the replay rows it writes are compared exactly)
@@ -95,10 +107,29 @@ ES_FIT_RTOL = 1e-5
 TRAIN_PARAM_TOL = 1e-4
 BENCH_ITERS = 2                         # timed chunks per bench schedule
 PART_REPS = 20                          # calls of a chunk's part, timed
+# the rest of the ETG-RL stack's entry points: widths kept, depth cut
+PRETRAIN_ENVS = 4080                    # 102 envs per candidate of 40
+PRETRAIN_GENS, PRETRAIN_STEPS = 2, 50   # defaults 100 x 400
+PRETRAIN_VS_PLAIN_STEPS = 10
+MATRIX_CHUNK = 50                       # run_task's chunk_steps
+MATRIX_EVAL = 600                       # the reference's eval episode
+MATRIX_RTOL = 1e-5                      # restored eval vs the trained one
+GAIT_STEPS = 600
+DEPLOY_TICKS = 100
+DEPLOY_DT = 0.026                       # the reference's control period
+BC_ENVS, BC_STEPS, BC_EVAL = 256, 4096, 100
+BC_COLLECT = 1024 // BC_ENVS            # control steps of a collect phase
+DYNID_POP, DYNID_T, DYNID_EPOCHS = 40, 100, 3
+DYNID_VS_PLAIN_T = 10
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, **kw):
+    """One line per phase; ``t`` is the seconds since the script started."""
+    kw["t"] = round(time.perf_counter() - T_START, 1)
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
 
@@ -240,6 +271,12 @@ def main() -> int:
         ("tail", {}, "ground", 40, {"dr": True, "B": TAIL_B}),
         # the ES population rollout's batch (10 blocks), nominal dynamics
         ("es_envs", {}, "ground", 2, {"B": es_batch(QuadrupedConfig().es)}),
+        # the deployment loop: one env, 31 idle lanes in its one block
+        ("single_env", {}, "ground", 2, {"B": 1}),
+        # dynamics ID's population: each env its own draw of all 48
+        # parameters, the ring of obs_latency_taps = latency_buffer_len
+        # (32, rounded up to a multiple of action_repeat)
+        ("dynid_pop", {}, "ground", 40, {"B": 40, "dynid": True}),
     ]
     worst, failed = 0.0, []
     for name, simkw, mode, L, kw in cases:
@@ -252,6 +289,8 @@ def main() -> int:
             gen = torch.Generator(device=dev)
             gen.manual_seed(1)
             p = randomize.sample_dynamics(Bc, gen, device=dev)
+        if kw.get("dynid"):
+            p = dynid_dyn(Bc, dev)
         torque = kw.get("torque", False)
         qd_ref = tau_ff = None
         if kw.get("hybrid"):
@@ -328,17 +367,14 @@ def main() -> int:
     env.step = step
 
     # the same rollout through the plain version on the card: a reference
-    # on a small input (32 steps). The kernel is bit-equal to the plain
-    # version above, so 1e-3 of the return leaves room for rounding only.
-    ref_steps, Bs = 32, 512
+    # on a small input (16 steps, see ES_VS_PLAIN_STEPS).
+    # The kernel is bit-equal to the plain version above, so 1e-3 of the
+    # return leaves room for rounding only.
+    ref_steps, Bs = 16, 512
     env_s = BatchedQuadrupedEnv(cfg, Bs)
     r_k = etg_rl.evaluate(env_s, actor, w0, b0, ref_steps)
-    orig = physics_step.control_step
-    physics_step.control_step = sbatch.control_step     # the env's call
-    try:
+    with plain_physics():
         r_p = etg_rl.evaluate(env_s, actor, w0, b0, ref_steps)
-    finally:
-        physics_step.control_step = orig
     d_ret = abs(r_k[0].item() - r_p[0].item())
     d_len = abs(r_k[1].item() - r_p[1].item())
     log("evaluate_vs_plain", B=Bs, steps=ref_steps, return_kernel=r_k[0].item(),
@@ -433,6 +469,26 @@ def main() -> int:
                         for v in ptxas.values()),
         library_ms=None, card=repr(card))
 
+    # the kernel by events at the deployment loop's B=1 and at dynamics ID's
+    # B=40 (per-env dynamics, ring 40), beside the B=4096 figure above
+    small_ms, small_dev = {}, {}
+    for name, Bx, L in (("single_env", 1, 2), ("dynid_pop", 40, 40)):
+        rbx = start(h_fn, L, spread=False, B=Bx)
+        px = (dynid_dyn(Bx, dev) if L > 2 else
+              sbatch.BDynParams.default(Bx, device=dev))
+        ax = rbx.s.q.clone()
+        fx = lambda: physics_step.control_step(rbx, ax, px, sim, h_fn)
+        small_ms[name] = timed(fx, 200, 20)
+        px_prof = profiler.device_breakdown(fx, reps=20,
+                                            match="control_step_kernel")
+        small_dev[name] = (px_prof["match_ms_per_call"]
+                           / max(px_prof["match_launches_per_call"], 1e-9))
+    log("kernel_time_small", **{f"{k}_ms": round(v, 5)
+                                for k, v in small_ms.items()},
+        **{f"{k}_device_ms": round(v, 5) for k, v in small_dev.items()},
+        B_4096_ms=round(kernel_ms, 5), B_4096_device_ms=round(kernel_dev, 5),
+        card=repr(card))
+
     # --- the physics wrapper's host cost ----------------------------------------
     # HOST_CALLS calls with no synchronize in between: host µs per call
     # (checks, output allocation, ctypes call, launch, ring update) beside
@@ -458,6 +514,7 @@ def main() -> int:
         card=repr(card))
 
     train_launches = train_phases(dev, card)
+    stack_launches = stack_phases(dev, card)
 
     kernels = [{
         "name": "control_step",
@@ -475,6 +532,11 @@ def main() -> int:
         "plain_device_ms": plain_dev,
         "library_device_ms": None,
         "train_launches": train_launches,
+        **stack_launches,
+        "single_env_ms": small_ms["single_env"],
+        "dynid_pop_ms": small_ms["dynid_pop"],
+        "single_env_device_ms": small_dev["single_env"],
+        "dynid_pop_device_ms": small_dev["dynid_pop"],
     }]
     kernels.append(hri_phases(dev, card))
     print(card)
@@ -499,7 +561,6 @@ def train_phases(dev, card) -> int:
     from paddlerobotics_torch.cli import train_bench
     from paddlerobotics_torch.core.config import QuadrupedConfig
     from paddlerobotics_torch.ops import physics_step
-    from paddlerobotics_torch.sim import sbatch
     from paddlerobotics_torch.train import checkpoints, etg_rl
     from paddlerobotics_torch.utils import profiler
 
@@ -663,12 +724,9 @@ def train_phases(dev, card) -> int:
     kern_step.launches = 0
     es_k, es_buf_k = es_run(es_actor)
     launches_es = kern_step.launches
-    physics_step.control_step = sbatch.control_step     # the env's call
-    try:
+    with plain_physics():
         cp, out_p = chunk()
         es_p, es_buf_p = es_run(es_actor)
-    finally:
-        physics_step.control_step = kern_step
     row_diff = (ck.buffer.data[:B] - cp.buffer.data[:B]).abs().max().item()
     param_diff = max(
         (a - c).abs().max().item()
@@ -764,6 +822,343 @@ def train_phases(dev, card) -> int:
                                "the physics kernel once")
         del trb, c
     return launches
+
+
+@contextlib.contextmanager
+def plain_physics():
+    """Route the env's physics call to the plain version
+    (``sim/sbatch.control_step``) for the duration."""
+    from paddlerobotics_torch.ops import physics_step
+    from paddlerobotics_torch.sim import sbatch
+
+    kern = physics_step.control_step
+    physics_step.control_step = sbatch.control_step
+    try:
+        yield
+    finally:
+        physics_step.control_step = kern
+
+
+def launched(fn):
+    """(fn(), physics launches, seconds up to a synchronize)."""
+    from paddlerobotics_torch.ops import physics_step
+
+    torch.cuda.synchronize()
+    physics_step.control_step.launches = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, physics_step.control_step.launches,
+            round(time.perf_counter() - t, 3))
+
+
+def dynid_dyn(B: int, dev, seed: int = 2):
+    """B per-env dynamics from 48 uniform parameters in [-1, 1] each
+    (gravity and 0–80 ms latency included), as dynamics ID injects them."""
+    from paddlerobotics_torch.envs import randomize
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand((randomize.NUM_DYNAMIC_PARAMS, B), generator=gen,
+                   device=dev) * 2.0 - 1.0
+    return randomize.param2dynamic(u)
+
+
+def stack_phases(dev, card) -> dict:
+    """The rest of the ETG-RL stack's entry points on the card, each driven
+    through its CLI or module with the launch count set to 0 just before
+    it: ETG pretraining (``[pretrain]``), the task matrix's train →
+    checkpoint → restore → eval (``[eval_matrix]``), gait export and the
+    deployment loop at B=1 (``[export_gait]``, ``[deploy_loop]``),
+    behaviour cloning (``[bc]``) and dynamics identification
+    (``[dynamics_id]``); each path's rollout also through the plain
+    physics (``[*_vs_plain]``). Returns the physics launches of each."""
+    import dataclasses
+    import shutil
+
+    from paddlerobotics_torch.algos import replay
+    from paddlerobotics_torch.algos.sac import SAC
+    from paddlerobotics_torch.cli import (bc_train, dynamics_id, eval_matrix,
+                                          export_gait, pretrain_etg)
+    from paddlerobotics_torch.core.config import QuadrupedConfig
+    from paddlerobotics_torch.deploy import policy_export, realtime
+    from paddlerobotics_torch.envs import randomize
+    from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
+    from paddlerobotics_torch.etg import fit
+    from paddlerobotics_torch.train import (bc_train as bc_mod, checkpoints,
+                                            dynamics_id as dynid_mod,
+                                            etg_rl, pretrain)
+
+    out_root = ROOT / "build" / "chip_smoke" / "stack"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+    base = QuadrupedConfig()
+    counts = {}
+
+    # --- [pretrain]: cli.pretrain_etg, depth cut through the episode length
+    orig_train = pretrain.ETGPretrainer.train
+    pretrain.ETGPretrainer.train = lambda self, **kw: orig_train(
+        self, episode_len=PRETRAIN_STEPS, **kw)
+    try:
+        (best, best_r), n, sec = launched(lambda: pretrain_etg.main([
+            "--popsize", str(base.es.popsize), "--num_envs",
+            str(PRETRAIN_ENVS), "--generations", str(PRETRAIN_GENS),
+            "--outdir", str(out_root / "pretrain"), "--save_path",
+            str(out_root / "etg_pretrained.npz"), "--device", "cuda"]))
+    finally:
+        pretrain.ETGPretrainer.train = orig_train
+    art = np.load(out_root / "etg_pretrained.npz")
+    log("pretrain", popsize=base.es.popsize, B=PRETRAIN_ENVS,
+        generations=PRETRAIN_GENS, steps=PRETRAIN_STEPS, launches=n,
+        best_fitness=best_r, seconds=sec,
+        npz=json.dumps({k: list(art[k].shape) for k in art.files}),
+        reduced=repr(f"generations 100->{PRETRAIN_GENS}, episode_len "
+                     f"400->{PRETRAIN_STEPS}"), card=repr(card))
+    if n != PRETRAIN_GENS * PRETRAIN_STEPS:
+        raise RuntimeError(f"{n} launches for {PRETRAIN_GENS} x "
+                           f"{PRETRAIN_STEPS} control steps")
+    if not np.isfinite(best_r) or sorted(art.files) != ["b", "param", "w"]:
+        raise RuntimeError("pretraining gave no finite best fitness or npz")
+    counts["pretrain_launches"] = n
+
+    # --- [pretrain_vs_plain]: one generation's fitness, kernel vs plain
+    pt = pretrain.ETGPretrainer(base, num_envs=PRETRAIN_ENVS,
+                                outdir=str(out_root / "pretrain_vs_plain"),
+                                device=dev)
+    sols, _ = pt.solver.ask(pt.solver.init(device=dev),
+                            torch.Generator(device=dev).manual_seed(3))
+
+    def population():
+        return pt._rollout_population(
+            sols, torch.Generator(device=dev).manual_seed(4),
+            PRETRAIN_VS_PLAIN_STEPS)
+
+    fit_k, n, sec = launched(population)
+    with plain_physics():
+        fit_p = population()
+    diff = (fit_k - fit_p).abs().max().item()
+    spread = (fit_k.max() - fit_k.min()).item()
+    log("pretrain_vs_plain", B=PRETRAIN_ENVS, popsize=base.es.popsize,
+        steps=PRETRAIN_VS_PLAIN_STEPS, launches=n,
+        fitness_max_abs_diff=diff, fitness_spread=spread,
+        fitness_mean=fit_k.mean().item(), card=repr(card))
+    if n != PRETRAIN_VS_PLAIN_STEPS or diff != 0.0 or not spread > 0.0 \
+            or not torch.isfinite(fit_k).all():
+        raise RuntimeError("pretraining fitness through the kernel differs "
+                           "from the plain physics, or is constant")
+    del pt
+
+    # --- [eval_matrix]: run_task train → checkpoint, then restore → eval
+    evals = []
+    orig_eval = etg_rl.ETGRLTrainer.evaluate
+
+    def kept_eval(self, *a, **k):
+        out = orig_eval(self, *a, **k)
+        evals.append([float(out[0]), float(out[1]),
+                      float(out[2]["velx"]), float(out[2]["success"])])
+        return out
+
+    root = out_root / "matrix"
+    chunk = MATRIX_CHUNK * B
+    # the preset's width (ground: B=4096, K=4); one cold and one warm chunk
+    over = {"warmup_steps": chunk, "num_envs": B}
+    etg_rl.ETGRLTrainer.evaluate = kept_eval
+    try:
+        row, n_tr, sec_tr = launched(lambda: eval_matrix.run_task(
+            "ground", str(root), True, 2 * chunk, MATRIX_EVAL,
+            overrides=over, device=dev))
+        row2, n_ev, sec_ev = launched(lambda: eval_matrix.run_task(
+            "ground", str(root), False, 0, MATRIX_EVAL, overrides=over,
+            device=dev))
+    finally:
+        etg_rl.ETGRLTrainer.evaluate = orig_eval
+    (ret_t, len_t, vx_t, su_t), (ret_r, len_r, vx_r, su_r) = evals
+    d_ret = abs(ret_r - ret_t)
+    ok_eval = all(abs(a - b) <= MATRIX_RTOL * max(1.0, abs(a)) for a, b in
+                  zip(evals[0], evals[1]))
+    log("eval_matrix", task="ground", schedule=row["schedule"],
+        budget=2 * chunk, train_launches=n_tr, train_seconds=sec_tr,
+        restore_launches=n_ev, restore_seconds=sec_ev,
+        eval_return=ret_t, eval_steps=len_t, restored_eval_return=ret_r,
+        restored_eval_steps=len_r, eval_return_abs_diff=d_ret,
+        eval_velx_abs_diff=abs(vx_r - vx_t),
+        eval_success_abs_diff=abs(su_r - su_t), row=json.dumps(row),
+        reduced=repr(f"budget 20000000->{2 * chunk}, warmup_steps "
+                     f"200000->{chunk}"), card=repr(card))
+    if (n_tr, n_ev) != (2 * MATRIX_CHUNK + MATRIX_EVAL, MATRIX_EVAL):
+        raise RuntimeError(f"{n_tr} + {n_ev} launches for the task "
+                           f"matrix's control steps")
+    if not ok_eval or not np.isfinite(ret_t) or \
+            checkpoints.latest_step(str(root / "ground")) != 2 * chunk:
+        raise RuntimeError("the restored checkpoint's eval does not "
+                           "reproduce the trained one")
+    cfg_m, _, _ = eval_matrix.build_task_config("ground", overrides=over)
+    restored = checkpoints.restore(str(root / "ground" / f"itr_{2 * chunk}"),
+                                   device=dev)
+    expert = SAC(base.sensors.base_obs_dim, 12, cfg_m.sac,
+                 device=dev).init(None)
+    checkpoints.load_sac_state(expert, restored["sac"])
+    counts["eval_matrix_launches"] = n_tr + n_ev
+
+    # --- [export_gait]: the CLI's table against the env's residual
+    with contextlib.chdir(out_root):
+        table = export_gait.main(["--steps", str(GAIT_STEPS), "--suffix",
+                                  "smoke", "--device", "cuda"])
+    saved = np.load(out_root / "gait_action_list_ETG_smoke.npy")
+    env1 = BatchedQuadrupedEnv(base, 1, device=dev)
+    w0, b0 = fit.opt_with_points(base.etg, device=dev)
+    worst = 0.0
+    for t in range(GAIT_STEPS):
+        r = env1._etg_residual(w0[..., None], b0[:, None], torch.full(
+            (1,), t, dtype=torch.int32, device=dev))[0][:, 0]
+        worst = max(worst, float(np.abs(r.cpu().numpy() - saved[t]).max()))
+    log("export_gait", steps=GAIT_STEPS, shape=list(saved.shape),
+        max_abs_diff_vs_env_residual=worst,
+        file_equals_return=bool(np.array_equal(saved, table)),
+        card=repr(card))
+    if saved.shape != (GAIT_STEPS, 12) or worst != 0.0 or \
+            not np.array_equal(saved, table):
+        raise RuntimeError("the exported gait table is not the env's "
+                           "residual")
+
+    # --- [deploy_loop]: the exported policy at B=1, kernel vs plain
+    policy = policy_export.export_policy_fn(expert.actor, saved,
+                                            env1.act_bound, device=dev)
+    sil = dataclasses.replace(base, etg=dataclasses.replace(base.etg,
+                                                            step_y=0.0))
+
+    def loop():
+        io = realtime.SimRobotIO(BatchedQuadrupedEnv(sil, 1, device=dev))
+        return realtime.run_control_loop(
+            policy, io, dt=DEPLOY_DT, max_time=(DEPLOY_TICKS + 0.5)
+            * DEPLOY_DT)
+
+    (obs_k, act_k), n, sec = launched(loop)
+    with plain_physics():
+        obs_p, act_p = loop()
+    aot = policy_export.aot_compile_policy(policy, base.sensors.base_obs_dim)
+    obs_t = torch.as_tensor(obs_k, device=dev)
+    aot_diff = max((aot(obs_t[i], torch.tensor(i, device=dev))
+                    - policy(obs_t[i], i)).abs().max().item()
+                   for i in range(DEPLOY_TICKS))
+    d_obs = float(np.abs(obs_k - obs_p).max())
+    d_act = float(np.abs(act_k - act_p).max())
+    log("deploy_loop", B=1, ticks=len(act_k), dt=DEPLOY_DT, launches=n,
+        seconds=sec, paced_seconds=round(DEPLOY_TICKS * DEPLOY_DT, 3),
+        obs_max_abs_diff=d_obs, target_max_abs_diff=d_act,
+        export_max_abs_diff=aot_diff,
+        finite=bool(np.isfinite(obs_k).all() and np.isfinite(act_k).all()),
+        card=repr(card))
+    if n != DEPLOY_TICKS or len(act_k) != DEPLOY_TICKS or d_obs != 0.0 or \
+            d_act != 0.0 or aot_diff != 0.0 or not np.isfinite(act_k).all():
+        raise RuntimeError("the deployment loop through the kernel differs "
+                           "from the plain physics or the exported policy")
+    counts["deploy_launches"] = n
+
+    # --- [bc]: cli.bc_train on the task matrix's expert
+    bc_row, n, sec = launched(lambda: bc_train.main([
+        "--expert_dir", str(root / "ground"), "--num_envs", str(BC_ENVS),
+        "--bc_steps", str(BC_STEPS), "--eval_steps", str(BC_EVAL),
+        "--outdir", str(out_root / "bc"), "--device", "cuda"]))
+    n_collect = BC_STEPS // BC_ENVS
+    log("bc", B=BC_ENVS, bc_steps=BC_STEPS, batch=bc_mod.REF_BATCH,
+        launches=n, collect_steps=n_collect, eval_steps=2 * BC_EVAL,
+        seconds=sec, actor_loss=bc_row["actor_loss"],
+        critic_loss=bc_row["critic_loss"], ref_ratio=bc_row["ref_ratio"],
+        student_return=bc_row["student_return"],
+        expert_return=bc_row["expert_return"],
+        reduced=repr(f"bc_steps 200000->{BC_STEPS}, eval_steps "
+                     f"600->{BC_EVAL}"), card=repr(card))
+    if n != n_collect + 2 * BC_EVAL or not all(np.isfinite(bc_row[k]) for k in (
+            "actor_loss", "critic_loss", "ref_ratio")) or not \
+            (out_root / "bc" / f"itr_{BC_STEPS}.pt").exists():
+        raise RuntimeError(f"behaviour cloning: {n} launches, {bc_row}")
+    counts["bc_launches"] = n
+
+    # --- [bc_vs_plain]: one collect phase, kernel vs plain
+    w_e, b_e = fit.opt_with_points(base.etg, device=dev)
+    bct = bc_mod.BCTrainer(cfg_m, expert, w_e, b_e, num_envs=BC_ENVS,
+                           outdir=str(out_root / "bc_vs_plain"), device=dev)
+
+    def collect():
+        gen = torch.Generator(device=dev).manual_seed(11)
+        env_state, obs = bct.reset(gen)
+        student = bct.bc.init(torch.Generator(device=dev).manual_seed(12))
+        buf = replay.bc_create(BC_COLLECT * BC_ENVS, bct.student_obs_dim,
+                               bct.env.obs_dim, device=dev)
+        _, _, (s_obs, e_obs) = bct.collect(student, env_state, obs,
+                                           BC_COLLECT, False, gen)
+        replay.bc_add_batch(buf, s_obs, e_obs)
+        return buf
+
+    buf_k, n, sec = launched(collect)
+    with plain_physics():
+        buf_p = collect()
+    diff = (buf_k.data - buf_p.data).abs().max().item()
+    log("bc_vs_plain", B=BC_ENVS, steps=BC_COLLECT, launches=n,
+        rows=buf_k.size, max_abs_diff=diff,
+        finite=bool(torch.isfinite(buf_k.data).all().item()),
+        card=repr(card))
+    if n != BC_COLLECT or diff != 0.0 or buf_k.size != BC_COLLECT * BC_ENVS:
+        raise RuntimeError("BC collection through the kernel differs from "
+                           "the plain physics")
+    del bct, buf_k, buf_p
+
+    # --- [dynamics_id]: traces under a hidden draw, then the CLI
+    dcfg = dataclasses.replace(base, sim=dataclasses.replace(
+        base.sim, obs_latency_taps=base.sim.latency_buffer_len))
+    env_h = BatchedQuadrupedEnv(dcfg, 1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hidden = (torch.rand((randomize.NUM_DYNAMIC_PARAMS, 1), generator=gen,
+                         device=dev) * 2.0 - 1.0) * 0.5
+    gait = torch.as_tensor(saved[:DYNID_T], device=dev)
+    q, gyro = dynid_mod.generate_trace(env_h, gait,
+                                       randomize.param2dynamic(hidden), gen,
+                                       noise_q=0.01, noise_gyro=0.05)
+    files = {k: str(out_root / f"dynid_{k}.npy")
+             for k in ("gait", "real_q", "real_gyro")}
+    for k, v in (("gait", gait), ("real_q", q[:, 0]), ("real_gyro",
+                                                        gyro[:, 0])):
+        np.save(files[k], v.cpu().numpy())
+    (ident, best), n, sec = launched(lambda: dynamics_id.main([
+        *[a for k, f in files.items() for a in (f"--{k}", f)],
+        "--popsize", str(DYNID_POP), "--epochs", str(DYNID_EPOCHS),
+        "--outdir", str(out_root / "dynid"), "--save",
+        str(out_root / "dynamic_param.npy"), "--device", "cuda"]))
+    l_id, l_nom, l_true = ident.score(torch.stack(
+        [best, torch.zeros_like(best), hidden[:, 0]])).tolist()
+    log("dynamics_id", popsize=DYNID_POP, T=DYNID_T, epochs=DYNID_EPOCHS,
+        launches=n, seconds=sec, ring=ident.env._hist_len,
+        identified_loss=l_id, nominal_loss=l_nom, true_loss=l_true,
+        reduced=repr(f"epochs 50->{DYNID_EPOCHS}"), card=repr(card))
+    if n != DYNID_EPOCHS * DYNID_T or not l_id < l_nom or \
+            not np.isfinite(l_id):
+        raise RuntimeError(f"dynamics ID: {n} launches, identified loss "
+                           f"{l_id} against nominal {l_nom}")
+    counts["dynid_launches"] = n
+
+    # --- [dynamics_id_vs_plain]: one _fitness call, kernel vs plain
+    short = dynid_mod.DynamicsIdentifier(
+        base, gait[:DYNID_VS_PLAIN_T], q[:DYNID_VS_PLAIN_T, 0],
+        gyro[:DYNID_VS_PLAIN_T, 0], popsize=DYNID_POP,
+        outdir=str(out_root / "dynid_vs_plain"), device=dev)
+    sols, _ = short.solver.ask(short.solver.init(device=dev),
+                               torch.Generator(device=dev).manual_seed(6))
+
+    def fitness():
+        return short._fitness(sols, torch.Generator(device=dev).manual_seed(7))
+
+    fit_k, n, sec = launched(fitness)
+    with plain_physics():
+        fit_p = fitness()
+    diff = (fit_k - fit_p).abs().max().item()
+    log("dynamics_id_vs_plain", popsize=DYNID_POP, T=DYNID_VS_PLAIN_T,
+        launches=n, fitness_max_abs_diff=diff,
+        fitness_mean=fit_k.mean().item(), card=repr(card))
+    if n != DYNID_VS_PLAIN_T or diff != 0.0 or \
+            not torch.isfinite(fit_k).all():
+        raise RuntimeError("dynamics-ID fitness through the kernel differs "
+                           "from the plain physics")
+    return counts
 
 
 def hri_phases(dev, card) -> dict:

@@ -72,6 +72,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--chunk_steps", type=int, default=50)
     p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--use_pallas", type=int, default=None,
+                   help="the JAX bench's flag: default and 1 run the "
+                        "physics kernel; 0 (the plain physics) is refused, "
+                        "the bench measures the card")
     p.add_argument("--num_envs", type=int, default=0,
                    help="override: bench a single custom (B, K) point")
     p.add_argument("--updates_per_step", type=int, default=4)
@@ -80,6 +84,9 @@ def main(argv=None):
     p.add_argument("--outdir", type=str, default="train_log/train_bench",
                    help="where each schedule's trainer writes its metrics")
     args = p.parse_args(argv)
+    if args.use_pallas == 0:
+        raise SystemExit("--use_pallas 0 on the card: the plain physics is "
+                         "the tests' reference, the card runs the kernel")
     if not torch.cuda.is_available():
         raise SystemExit("train_bench measures the card: no CUDA device")
     schedules = SCHEDULES if not args.num_envs else [

@@ -13,6 +13,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from paddlerobotics_torch.algos.bc import BC, BCState
 from paddlerobotics_torch.algos.networks import Actor, Critic
 from paddlerobotics_torch.algos.sac import SAC, SACState
 from paddlerobotics_torch.core.config import SACConfig
@@ -233,4 +234,23 @@ def sac_from_flax(state_np, obs_dim: int, action_dim: int,
                 state_np.critic_opt[0])
     _adam_state(state.alpha_opt, [(state.log_alpha, (), False)],
                 state_np.alpha_opt[0])
+    return state
+
+
+def bc_from_flax(state_np, obs_dim: int, action_dim: int,
+                 hidden: int = 256, actor_lr: float = 3e-4,
+                 critic_lr: float = 3e-4,
+                 device: str | torch.device | None = None) -> BCState:
+    """A JAX ``BCState`` as numpy arrays (``jax.tree.map(np.asarray, s)``)
+    → the port's BC state, on the card unless ``device`` says otherwise:
+    the student's actor and critic params and both optax Adam states, as
+    ``sac_from_flax`` carries them."""
+    state = BC(obs_dim, action_dim, actor_lr, critic_lr, hidden,
+               device=device).init(None)
+    _load_leaves(state.actor, state_np.actor_params)
+    _load_leaves(state.critic, state_np.critic_params)
+    _adam_state(state.actor_opt, flax_leaves(state.actor),
+                state_np.actor_opt[0])
+    _adam_state(state.critic_opt, flax_leaves(state.critic),
+                state_np.critic_opt[0])
     return state

@@ -2,8 +2,11 @@
 
 Geometry/gain constants mirror the reference's A1 description
 (QuadrupedalRobots/ETGRL/deployment/robots/a1.py:62-91) and the public
-Unitree a1.urdf (mass/inertia blocks). Only the constants are ported: the
-batched env does its own leg IK (``envs/batched_env._soa_ik``).
+Unitree a1.urdf (mass/inertia blocks), and the leg kinematics (FK, IK,
+analytic Jacobian) as plain functions on float32 tensors with a trailing
+component axis. The batched env does its own SoA leg IK
+(``envs/batched_env._soa_ik``); these serve the gait table, the deployment
+estimator and the tests.
 
 Leg order everywhere: 0=FR, 1=FL, 2=RR, 3=RL (a1.py MOTOR_NAMES).
 Each leg: [abduction(hip, rot-x), hip pitch(upper, rot-y), knee(lower, rot-y)].
@@ -12,6 +15,7 @@ Each leg: [abduction(hip, rot-x), hip pitch(upper, rot-y), knee(lower, rot-y)].
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 NUM_LEGS = 4
 NUM_MOTORS = 12
@@ -112,3 +116,90 @@ def combined_calf_inertia():
     inertia = (parallel_axis(CALF_INERTIA, m1, c1 - com)
                + parallel_axis(i_foot, m2, c2 - com))
     return m, com, inertia
+
+
+def _c(a, like: torch.Tensor) -> torch.Tensor:
+    """A numpy constant as a float32 tensor on ``like``'s device."""
+    return torch.as_tensor(np.asarray(a, np.float32), device=like.device)
+
+
+def foot_position_in_hip_frame(angles: torch.Tensor,
+                               l_hip_sign) -> torch.Tensor:
+    """FK: leg joint angles (...,3) → foot position in hip frame (...,3)
+    (a1.py:113-129); ``l_hip_sign`` broadcasts against ``angles[..., 0]``."""
+    theta_ab, theta_hip, theta_knee = angles[..., 0], angles[..., 1], \
+        angles[..., 2]
+    l_hip = L_HIP * torch.as_tensor(l_hip_sign, dtype=angles.dtype,
+                                    device=angles.device)
+    leg_distance = torch.sqrt(
+        L_UP ** 2 + L_LOW ** 2 + 2 * L_UP * L_LOW * torch.cos(theta_knee))
+    eff_swing = theta_hip + theta_knee / 2
+    off_x = -leg_distance * torch.sin(eff_swing)
+    off_z_hip = -leg_distance * torch.cos(eff_swing)
+    off_y = torch.cos(theta_ab) * l_hip - torch.sin(theta_ab) * off_z_hip
+    off_z = torch.sin(theta_ab) * l_hip + torch.cos(theta_ab) * off_z_hip
+    return torch.stack([off_x, off_y, off_z], dim=-1)
+
+
+def foot_position_in_hip_frame_to_joint_angle(
+        foot_position: torch.Tensor, l_hip_sign) -> torch.Tensor:
+    """IK: foot position in hip frame (...,3) → joint angles (...,3)
+    (a1.py:97-110, the acos argument clipped)."""
+    x, y, z = foot_position[..., 0], foot_position[..., 1], \
+        foot_position[..., 2]
+    l_hip = L_HIP * torch.as_tensor(l_hip_sign, dtype=foot_position.dtype,
+                                    device=foot_position.device)
+    cos_knee = (x ** 2 + y ** 2 + z ** 2 - l_hip ** 2 - L_LOW ** 2
+                - L_UP ** 2) / (2 * L_LOW * L_UP)
+    theta_knee = -torch.acos(torch.clamp(cos_knee, -1.0, 1.0))
+    l = torch.sqrt(torch.clamp(
+        L_UP ** 2 + L_LOW ** 2 + 2 * L_UP * L_LOW * torch.cos(theta_knee),
+        min=1e-12))
+    theta_hip = torch.asin(torch.clamp(-x / l, -1.0, 1.0)) - theta_knee / 2
+    c1 = l_hip * y - l * torch.cos(theta_hip + theta_knee / 2) * z
+    s1 = l * torch.cos(theta_hip + theta_knee / 2) * y + l_hip * z
+    theta_ab = torch.atan2(s1, c1)
+    return torch.stack([theta_ab, theta_hip, theta_knee], dim=-1)
+
+
+def foot_positions_in_base_frame(motor_angles: torch.Tensor) -> torch.Tensor:
+    """All-legs FK: (...,12) motor angles → (...,4,3) foot positions in the
+    base (COM) frame (a1.py:167-173)."""
+    angles = motor_angles.reshape(motor_angles.shape[:-1] + (4, 3))
+    pos = foot_position_in_hip_frame(angles, _c(HIP_SIGNS, motor_angles))
+    return pos + _c(HIP_OFFSETS, motor_angles)
+
+
+def joint_angles_from_foot_positions(foot_positions: torch.Tensor
+                                     ) -> torch.Tensor:
+    """All-legs IK: (...,4,3) foot positions in the base frame → (...,12)
+    angles (a1.py:464-497)."""
+    rel = foot_positions - _c(HIP_OFFSETS, foot_positions)
+    angles = foot_position_in_hip_frame_to_joint_angle(
+        rel, _c(HIP_SIGNS, foot_positions))
+    return angles.reshape(foot_positions.shape[:-2] + (12,))
+
+
+def analytical_leg_jacobian(leg_angles: torch.Tensor,
+                            l_hip_sign) -> torch.Tensor:
+    """Analytic 3×3 foot Jacobian per leg (a1.py:132-159): (...,3) angles
+    → (...,3,3)."""
+    t1, t2, t3 = leg_angles[..., 0], leg_angles[..., 1], leg_angles[..., 2]
+    l_hip = L_HIP * torch.as_tensor(l_hip_sign, dtype=leg_angles.dtype,
+                                    device=leg_angles.device)
+    l_eff = torch.sqrt(L_UP ** 2 + L_LOW ** 2
+                       + 2 * L_UP * L_LOW * torch.cos(t3))
+    t_eff = t2 + t3 / 2
+    s1, c1 = torch.sin(t1), torch.cos(t1)
+    s_eff, c_eff = torch.sin(t_eff), torch.cos(t_eff)
+    dl = L_LOW * L_UP * torch.sin(t3) / l_eff
+    zero = torch.zeros_like(t1)
+    row0 = torch.stack([zero, -l_eff * c_eff,
+                        dl * s_eff - l_eff * c_eff / 2], dim=-1)
+    row1 = torch.stack([-l_hip * s1 + l_eff * c1 * c_eff,
+                        -l_eff * s1 * s_eff,
+                        -dl * s1 * c_eff - l_eff * s1 * s_eff / 2], dim=-1)
+    row2 = torch.stack([l_hip * c1 + l_eff * s1 * c_eff,
+                        l_eff * s_eff * c1,
+                        dl * c1 * c_eff + l_eff * s_eff * c1 / 2], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)

@@ -10,11 +10,18 @@ import tempfile
 import pytest
 import torch
 
+import numpy as np
+
 from paddlerobotics_torch import convert
 from paddlerobotics_torch.algos import es, replay
+from paddlerobotics_torch.algos.bc import BC
 from paddlerobotics_torch.algos.networks import Actor
 from paddlerobotics_torch.algos.sac import SAC
-from paddlerobotics_torch.core.config import QuadrupedConfig
+from paddlerobotics_torch.cli import (bc_train, dynamics_id, eval_matrix,
+                                      export_gait, pretrain_etg, train_bench)
+from paddlerobotics_torch.core.config import ESConfig, QuadrupedConfig
+from paddlerobotics_torch.deploy import (bezier, estimator, policy_export,
+                                         realtime)
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
 from paddlerobotics_torch.etg import fit
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
@@ -23,7 +30,10 @@ from paddlerobotics_torch.hri.perception.scene import SceneSensor
 from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
                                               ServiceConfig)
 from paddlerobotics_torch.sim import sbatch
+from paddlerobotics_torch.train.bc_train import BCTrainer
+from paddlerobotics_torch.train.dynamics_id import DynamicsIdentifier
 from paddlerobotics_torch.train.etg_rl import ETGRLTrainer
+from paddlerobotics_torch.train.pretrain import ETGPretrainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _OUTDIR = os.path.join(tempfile.gettempdir(), "torch_isolation_trainer")
@@ -49,7 +59,7 @@ def test_port_imports_no_jax():
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 56, out.stdout
+    assert int(n) >= 70, out.stdout
     assert bad == "[]", out.stdout
 
 
@@ -111,6 +121,27 @@ _ENTRY_POINTS = {
     "batched_opt_with_points": lambda **kw: fit.batched_opt_with_points(
         QuadrupedConfig().etg, torch.zeros(2, 6, 2), torch.zeros(3, 20),
         torch.zeros(3), **kw)[0],
+    "ETGPretrainer": lambda **kw: ETGPretrainer(
+        QuadrupedConfig(es=ESConfig(popsize=4)), num_envs=8, outdir=_OUTDIR,
+        **kw),
+    "BC": lambda **kw: BC(46, 12, hidden=8, **kw),
+    "replay.bc_create": lambda **kw: replay.bc_create(16, 46, 49, **kw),
+    "BCTrainer": lambda **kw: BCTrainer(
+        QuadrupedConfig(), SAC(49, 12, device="cpu").init(None), num_envs=8,
+        outdir=_OUTDIR, **kw),
+    "DynamicsIdentifier": lambda **kw: DynamicsIdentifier(
+        QuadrupedConfig(), np.zeros((5, 12)), np.zeros((5, 12)),
+        np.zeros((5, 3)), popsize=4, outdir=_OUTDIR, **kw),
+    # the loop's device is its env's
+    "SimRobotIO": lambda **kw: realtime.SimRobotIO(
+        BatchedQuadrupedEnv(QuadrupedConfig(), 1, **kw)).env,
+    "export_policy_fn": lambda **kw: policy_export.export_policy_fn(
+        Actor(49, 12, 8, device="cpu"), np.zeros((4, 12)), np.ones(12),
+        **kw),
+    "estimator_init": lambda **kw: estimator.estimator_init(**kw).estimate,
+    "bezier.init_state": lambda **kw: bezier.init_state(**kw).time,
+    "bezier.stepper_init": lambda **kw: bezier.stepper_init(
+        **kw).step_length,
 }
 
 
@@ -125,3 +156,38 @@ def test_entry_point_without_device_needs_a_card(name):
     dev = (next(obj.parameters()).device if isinstance(obj, torch.nn.Module)
            else obj.device)
     assert dev.type == "cpu"
+
+
+def _cli_argvs(tmp: pathlib.Path) -> dict:
+    for name, shape in (("gait", (5, 12)), ("q", (5, 12)), ("gyro", (5, 3))):
+        np.save(tmp / f"{name}.npy", np.zeros(shape, np.float32))
+    return {
+        "pretrain_etg": (pretrain_etg.main, [
+            "--popsize", "4", "--num_envs", "8", "--generations", "1",
+            "--outdir", str(tmp), "--save_path", str(tmp / "e.npz")]),
+        "eval_matrix": (eval_matrix.main, ["--root", str(tmp)]),
+        "bc_train": (bc_train.main, ["--expert_dir", str(tmp), "--outdir",
+                                     str(tmp)]),
+        "dynamics_id": (dynamics_id.main, [
+            "--gait", str(tmp / "gait.npy"), "--real_q", str(tmp / "q.npy"),
+            "--real_gyro", str(tmp / "gyro.npy"), "--outdir", str(tmp)]),
+        "export_gait": (export_gait.main, ["--save", "0"]),
+        # the JAX bench's flag is accepted; the bench needs the card
+        "train_bench": (train_bench.main, ["--use_pallas", "1"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["pretrain_etg", "eval_matrix", "bc_train",
+                                  "dynamics_id", "export_gait",
+                                  "train_bench"])
+def test_cli_without_device_needs_a_card(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    main, argv = _cli_argvs(tmp_path)[name]
+    with pytest.raises((RuntimeError, SystemExit), match="no CUDA device"):
+        main(argv)
+
+
+def test_train_bench_refuses_the_plain_physics():
+    with pytest.raises(SystemExit, match="use_pallas 0"):
+        train_bench.main(["--use_pallas", "0"])

@@ -16,8 +16,9 @@ one warm step at the bounds that conditioning leaves (see
 ``test_warm_step_at_full_actor_scale``). ``es_eval`` (B=8, P=2, 10 steps) agrees on
 fitness to 1e-4, on episode length exactly, and writes the same replay
 rows (1e-4). The ADR controller is exact, the CLI runs on the CPU and
-refuses a mesh, and the recurrent modes are wired. The whole ``train()``
-loop is held in test_torch_train_loop.py.
+refuses a mesh (it and the bench refuse the plain physics on the card),
+and the recurrent modes are wired. The whole ``train()`` loop is held in
+test_torch_train_loop.py.
 """
 
 import dataclasses
@@ -35,7 +36,7 @@ from paddlerobotics_tpu.core import config as jconfig
 from paddlerobotics_tpu.train import etg_rl as jetg_rl
 
 from paddlerobotics_torch import convert
-from paddlerobotics_torch.cli import train_quadruped
+from paddlerobotics_torch.cli import train_bench, train_quadruped
 from paddlerobotics_torch.core import config
 from paddlerobotics_torch.train import etg_rl
 
@@ -247,6 +248,9 @@ def test_cli_runs_on_the_cpu_and_refuses_a_mesh(tmp_path, capsys):
         ["--device", "cuda", "--use_pallas", "0"])
     with pytest.raises(SystemExit, match="use_pallas"):
         train_quadruped.check_args(args)
+    # the bench takes the JAX bench's flag and refuses 0 the same way
+    with pytest.raises(SystemExit, match="use_pallas"):
+        train_bench.main(["--use_pallas", "0"])
     # the shipped seed of a task is found by --ETG_path auto
     with pytest.raises(SystemExit, match="requires --load"):
         train_quadruped.main(argv + ["--eval", "1"])
