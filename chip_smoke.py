@@ -27,7 +27,16 @@ to 0 just before it and read just after:
   416² and the 317-action attention controller at its default widths (6
   attention launches per decided frame), then ``STEADY_FRAMES`` decided
   frames once the window is full, then ``OfflineEvaluator`` at 64
-  windows; both against the same path on the plain attention.
+  windows; both against the same path on the plain attention;
+- HRI training at the CLI's full width (the 317-action controller, batch
+  16, lr 1e-4, l2 0.1): ``AttentionTrainer.train_step`` on
+  ``generate_windows_device`` windows (no attention launch: training runs
+  the plain attention), ``eval_step`` on 256 held-out numpy windows
+  (6 launches), the trained weights through the kernel against the plain
+  attention, a checkpoint resume, the five-variant ablation fleet
+  (``cli.parallel_train_attn``), and checkpoint → ``cli.export_hri_model``
+  → ``hri.export.load_bundle`` → the service with the YOLOv4 sensor (6
+  launches per decided frame).
 
 Times each kernel by CUDA events and by its device time under
 ``torch.profiler``, beside its bounds, its launch plan, its plain version
@@ -121,6 +130,22 @@ BC_ENVS, BC_STEPS, BC_EVAL = 256, 4096, 100
 BC_COLLECT = 1024 // BC_ENVS            # control steps of a collect phase
 DYNID_POP, DYNID_T, DYNID_EPOCHS = 40, 100, 3
 DYNID_VS_PLAIN_T = 10
+# HRI controller training at the CLI's full width (AttnCtrlConfig(
+# num_actions=317): D=512, 6 blocks, 8 heads, ffn 2048, 10 × 20 tokens),
+# batch 16, lr 1e-4, l2 0.1; depth cut (cli/train_attention's 10 epochs of
+# data → HRI_TRAIN_STEPS steps)
+HRI_BATCH, HRI_LR, HRI_L2 = 16, 1e-4, 0.1
+HRI_TRAIN_STEPS = 200
+HRI_WARMUP_STEPS = 3                    # on a throwaway state, then profiled
+HRI_LOSS_WINDOW = 20                    # steps averaged for first / last loss
+HRI_HELDOUT = 256                       # numpy windows, one eval_step call
+HRI_RESUME_STEPS = 10                   # 10 + save/restore + 10 vs 20
+# resumed vs uninterrupted weights: equal unless cuBLAS rounds a call
+# differently, and then an entry whose decayed gradient is ~0 may take one
+# Adam step (±lr) the other way
+HRI_RESUME_TOL = 2 * HRI_LR
+HRI_FLEET_BATCHES = 2                   # --synthetic 2 --epochs 1
+HRI_BUNDLE_FRAMES = 20                  # decided frames through the bundle
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -538,7 +563,9 @@ def main() -> int:
         "single_env_device_ms": small_dev["single_env"],
         "dynid_pop_device_ms": small_dev["dynid_pop"],
     }]
-    kernels.append(hri_phases(dev, card))
+    attn_entry, scene = hri_phases(dev, card)
+    attn_entry.update(hri_train_phases(dev, card, scene))
+    kernels.append(attn_entry)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1161,9 +1188,9 @@ def stack_phases(dev, card) -> dict:
     return counts
 
 
-def hri_phases(dev, card) -> dict:
+def hri_phases(dev, card):
     """The HRI serving path and the attention kernel; returns the kernel's
-    entry of the ``kernels`` line."""
+    entry of the ``kernels`` line and the YOLOv4 scene sensor."""
     import torch.nn.functional as F
 
     from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
@@ -1512,7 +1539,253 @@ def hri_phases(dev, card) -> dict:
         launch_args_us_per_call=round(args_us, 3),
         event_ms_per_call=round(ev[0].elapsed_time(ev[1]) / HOST_CALLS, 5),
         card=repr(card))
-    return entry
+    return entry, scene
+
+
+def _auc(scores: np.ndarray, labels: np.ndarray) -> float:
+    """Area under the ROC curve by ranks (ties broken by order)."""
+    o = np.argsort(scores)
+    r = np.empty(len(scores), float)
+    r[o] = np.arange(len(scores))
+    npos, nneg = labels.sum(), (1 - labels).sum()
+    return float((r[labels > 0.5].sum() - npos * (npos - 1) / 2)
+                 / (npos * nneg))
+
+
+def hri_train_phases(dev, card, scene) -> dict:
+    """The HRI attention controller's training path at the CLI's full width:
+    ``AttentionTrainer.train_step`` on ``generate_windows_device`` windows,
+    scored by ``eval_step`` on held-out numpy windows (``[hri_train]``);
+    the trained weights through the kernel and through the plain attention
+    (``[hri_eval_vs_plain]``); checkpoint resume (``[hri_train_resume]``);
+    the five-variant ablation fleet (``[hri_fleet]``); checkpoint →
+    ``cli.export_hri_model`` → ``load_bundle`` → the service with the
+    YOLOv4 sensor (``[hri_bundle]``). Returns the attention launches of
+    training, scoring and the bundle's service."""
+    import shutil
+
+    from paddlerobotics_torch.cli import export_hri_model, parallel_train_attn
+    from paddlerobotics_torch.hri import export, synthetic_scene
+    from paddlerobotics_torch.hri.attention_ctrl import AttnCtrlConfig
+    from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
+                                                  ServiceConfig)
+    from paddlerobotics_torch.hri.train_attention import (AttentionTrainer,
+                                                          to_device)
+    from paddlerobotics_torch.ops import attention
+    from paddlerobotics_torch.train import checkpoints
+    from paddlerobotics_torch.utils import profiler
+
+    out_root = ROOT / "build" / "chip_smoke" / "hri"
+    shutil.rmtree(out_root, ignore_errors=True)
+    cfg = AttnCtrlConfig(num_actions=317)
+    trainer = AttentionTrainer(cfg, lr=HRI_LR, weight_decay=HRI_L2,
+                               device=dev)
+
+    def seeded(seed):
+        g = torch.Generator(dev)
+        g.manual_seed(seed)
+        return g
+
+    @torch.no_grad()
+    def outputs(model, batch, use_kernel):
+        return model(trainer._tokens(batch), batch["frame_ids"],
+                     batch["padding_mask"], use_kernel=use_kernel)
+
+    protos = synthetic_scene.device_prototypes(cfg, device=dev)
+    heldout = to_device(synthetic_scene.generate_windows(
+        np.random.RandomState(0), HRI_HELDOUT, cfg), dev)
+
+    # --- warm-up and profile on a throwaway state ----------------------------
+    warm = trainer.init(seeded(10))
+    wgen = seeded(11)
+    batch = synthetic_scene.generate_windows_device(wgen, HRI_BATCH, cfg,
+                                                    protos, device=dev)
+    for _ in range(HRI_WARMUP_STEPS):
+        trainer.train_step(warm, batch)
+    torch.cuda.synchronize()
+    prof = profiler.device_breakdown(lambda: trainer.train_step(warm, batch),
+                                     reps=5)
+    gen_prof = profiler.device_breakdown(
+        lambda: synthetic_scene.generate_windows_device(
+            wgen, HRI_BATCH, cfg, protos, device=dev), reps=5)
+
+    # --- 200 steps on the card's own windows ----------------------------------
+    state = trainer.init(seeded(0))
+    gen = seeded(1)
+    losses, host_ms = [], []
+    attention.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HRI_TRAIN_STEPS):
+        t = time.perf_counter()
+        b = synthetic_scene.generate_windows_device(gen, HRI_BATCH, cfg,
+                                                    protos, device=dev)
+        aux = trainer.train_step(state, b)
+        host_ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(torch.stack([aux["loss"], aux["trigger_loss"]]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = attention.flash_attention.launches
+    losses = torch.stack(losses).cpu().numpy()
+    w = HRI_LOSS_WINDOW
+    first, last = losses[:w].mean(0), losses[-w:].mean(0)
+
+    attention.flash_attention.launches = 0
+    metrics = trainer.eval_step(state, heldout)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    eval_launches = attention.flash_attention.launches
+    kern = outputs(state.model, heldout, use_kernel=True)
+    labels = heldout["has_act"].cpu().numpy().ravel()
+    auc = _auc(torch.sigmoid(kern["trigger_logits"]).cpu().numpy().ravel(),
+               labels)
+    log("hri_train", steps=HRI_TRAIN_STEPS, batch=HRI_BATCH,
+        seconds=round(wall, 4),
+        steps_per_s=round(HRI_TRAIN_STEPS / wall, 3),
+        windows_per_s=round(HRI_TRAIN_STEPS * HRI_BATCH / wall, 1),
+        p50_host_ms_per_step=round(float(np.median(host_ms)), 3),
+        step_device_ms=round(prof["device_ms_per_call"], 4),
+        step_kernels=prof["kernels_per_call"],
+        step_wall_ms=round(prof["wall_ms_per_call"], 3),
+        step_device_busy=round(prof["device_busy_share"], 4),
+        step_top=json.dumps(prof["top"]),
+        windows_device_ms=round(gen_prof["device_ms_per_call"], 4),
+        windows_kernels=gen_prof["kernels_per_call"],
+        loss_first=round(float(first[0]), 5), loss_last=round(float(last[0]),
+                                                               5),
+        trigger_loss_first=round(float(first[1]), 5),
+        trigger_loss_last=round(float(last[1]), 5),
+        heldout=HRI_HELDOUT, trigger_auc=round(auc, 4),
+        trigger_acc=round(metrics["trigger_acc"], 4),
+        act_acc=round(metrics["act_acc"], 4),
+        positive_rate=round(float(labels.mean()), 4),
+        train_launches=train_launches, eval_launches=eval_launches,
+        card=repr(card))
+    if train_launches != 0:
+        raise RuntimeError(f"{train_launches} attention launches in "
+                           "train_step: training must run the plain attention")
+    blocks = cfg.num_decoder_blocks         # one launch per block: 6
+    if eval_launches != blocks:
+        raise RuntimeError(f"{eval_launches} attention launches in one "
+                           f"eval_step, expected {blocks}")
+    if not np.isfinite(losses).all() or not last[0] < first[0]:
+        raise RuntimeError(f"training loss not finite and decreasing: "
+                           f"first {first[0]}, last {last[0]}")
+
+    # --- the trained weights through the kernel and the plain attention -------
+    plain = outputs(state.model, heldout, use_kernel=False)
+    diffs, ok = {}, True
+    for k in ("trigger_logits", "obj_logits", "act_logits"):
+        diffs[k] = (kern[k] - plain[k]).abs().max().item()
+        ok &= bool(torch.isfinite(kern[k]).all().item()) and torch.allclose(
+            kern[k], plain[k], atol=SERVE_TOL, rtol=SERVE_TOL)
+    log("hri_eval_vs_plain", windows=HRI_HELDOUT, tol=SERVE_TOL,
+        **{f"max_abs_diff_{k}": v for k, v in diffs.items()},
+        max_abs_act_logit=round(plain["act_logits"].abs().max().item(), 3),
+        result="pass" if ok else "FAIL")
+    if not ok:
+        raise RuntimeError("the trained controller through the kernel "
+                           "disagrees with the plain attention")
+
+    # --- resume: 10 steps, save, restore into a fresh trainer, 10 more --------
+    rgen = seeded(2)
+    batches = [synthetic_scene.generate_windows_device(
+        rgen, HRI_BATCH, cfg, protos, device=dev)
+        for _ in range(2 * HRI_RESUME_STEPS)]
+    whole = trainer.init(seeded(3))
+    part = trainer.init(seeded(3))
+    for b in batches:
+        trainer.train_step(whole, b)
+    for b in batches[:HRI_RESUME_STEPS]:
+        trainer.train_step(part, b)
+    ck = checkpoints.save_attn(str(out_root / "resume"), part)
+    resumed = trainer.init(seeded(4))
+    checkpoints.load_attn_state(resumed,
+                                checkpoints.restore(ck, device=dev)["attn"])
+    for b in batches[HRI_RESUME_STEPS:]:
+        trainer.train_step(resumed, b)
+    torch.cuda.synchronize()
+    d_w = max((p - q).abs().max().item() for p, q in zip(
+        whole.model.parameters(), resumed.model.parameters()))
+    adam_steps = {float(resumed.opt.state[p]["step"])
+                  for p in resumed.model.parameters()}
+    log("hri_train_resume", steps=f"{HRI_RESUME_STEPS}+{HRI_RESUME_STEPS}",
+        checkpoint=pathlib.Path(ck).name, max_abs_weight_diff=d_w,
+        tol=HRI_RESUME_TOL, step=resumed.step, whole_step=whole.step,
+        adam_steps=json.dumps(sorted(adam_steps)))
+    if d_w > HRI_RESUME_TOL or resumed.step != whole.step or \
+            adam_steps != {float(whole.step)}:
+        raise RuntimeError("the resumed training differs from the "
+                           "uninterrupted one")
+    del whole, part, resumed, batches, warm
+
+    # --- the five-variant ablation fleet at full width ------------------------
+    attention.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet = parallel_train_attn.main([
+        "--variants", ",".join(parallel_train_attn.VARIANTS),
+        "--synthetic", str(HRI_FLEET_BATCHES), "--epochs", "1",
+        "--outdir", str(out_root / "fleet"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    fleet_ok = attention.flash_attention.launches == 0
+    for name, v in fleet.items():
+        fleet_ok &= v["state"].step == HRI_FLEET_BATCHES and (
+            out_root / "fleet" / name / f"itr_{HRI_FLEET_BATCHES}.pt").exists()
+        fleet_ok &= all(bool(torch.isfinite(p).all().item())
+                        for p in v["state"].model.parameters())
+    log("hri_fleet", variants=json.dumps(list(fleet)),
+        steps=HRI_FLEET_BATCHES, seconds=round(fleet_s, 3),
+        host_seconds=json.dumps({k: round(v["seconds"], 3)
+                                 for k, v in fleet.items()}),
+        launches=attention.flash_attention.launches,
+        result="pass" if fleet_ok else "FAIL", card=repr(card))
+    if not fleet_ok or list(fleet) != list(parallel_train_attn.VARIANTS):
+        raise RuntimeError("the ablation fleet did not train every variant")
+    del fleet
+
+    # --- checkpoint → export → bundle → the service ---------------------------
+    ck = checkpoints.save_attn(str(out_root / "train"), state)
+    bundle_dir = out_root / "bundle"
+    export_hri_model.main(["--ckpt", ck, "--out", str(bundle_dir)])
+    bundle = export.load_bundle(str(bundle_dir), device=dev)
+    one = {k: v[:1] for k, v in heldout.items()}
+    a = outputs(state.model, one, use_kernel=True)
+    b = outputs(bundle.ctrl, one, use_kernel=True)
+    d_bundle = max((a[k] - b[k]).abs().max().item() for k in (
+        "trigger_logits", "obj_logits", "act_logits"))
+    g = seeded(5)
+    svc = ProactiveGreetingService(
+        ServiceConfig(trigger_threshold=0.0, wakeup_cooldown_s=0.0,
+                      near_field_frac=0.0), scene, bundle.ctrl,
+        generator=g, device=dev)
+    frames = np.random.default_rng(7).random(
+        (HRI_BUNDLE_FRAMES + 9, SIZE, SIZE, 3), dtype=np.float32)
+    attention.flash_attention.launches = 0
+    decisions = [svc.process_frame(f) for f in frames]
+    torch.cuda.synchronize()
+    bundle_launches = attention.flash_attention.launches
+    decided = [d for d in decisions if "trigger_score" in d]
+    scores = [d["trigger_score"] for d in decided]
+    log("hri_bundle", checkpoint=pathlib.Path(ck).name,
+        format=bundle.manifest["format"], max_abs_diff_vs_trained=d_bundle,
+        frames=len(frames), decided=len(decided),
+        triggered=sum(bool(d["triggered"]) for d in decided),
+        launches=bundle_launches,
+        trigger_scores=json.dumps([round(x, 4) for x in scores[:5]]),
+        card=repr(card))
+    if d_bundle != 0.0:
+        raise RuntimeError(f"the bundle's controller is {d_bundle} apart from "
+                           "the trained module")
+    if len(decided) != HRI_BUNDLE_FRAMES or \
+            bundle_launches != blocks * HRI_BUNDLE_FRAMES or \
+            not all(np.isfinite(scores)):
+        raise RuntimeError(f"{bundle_launches} attention launches for "
+                           f"{len(decided)} decided frames through the "
+                           f"bundle, expected {blocks * HRI_BUNDLE_FRAMES}")
+    return {"hri_train_launches": train_launches,
+            "hri_eval_launches": eval_launches,
+            "hri_bundle_launches": bundle_launches}
 
 
 def count_ops_per_env(sim, h_fn) -> float:

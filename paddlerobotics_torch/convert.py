@@ -21,6 +21,8 @@ from paddlerobotics_torch.core.device import resolve_device
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig)
 from paddlerobotics_torch.hri.perception.scene import SceneSensor
+from paddlerobotics_torch.hri.train_attention import (AttentionTrainer,
+                                                      AttnTrainState)
 from paddlerobotics_torch.sim.sbatch import (BContact, BDynParams, BQuadState,
                                              BRobot)
 
@@ -136,6 +138,24 @@ def ctrl_from_flax(params_np: Mapping, cfg: AttnCtrlConfig,
     return ctrl
 
 
+def attn_train_from_flax(state_np, cfg: AttnCtrlConfig, lr: float = 1e-4,
+                         weight_decay: float = 0.1,
+                         device: str | torch.device | None = None
+                         ) -> AttnTrainState:
+    """A JAX ``AttnTrainState`` as numpy arrays (``jax.tree.map(np.asarray,
+    s)``) → the port's trainer state, on the card unless ``device`` says
+    otherwise: the controller's params, the Adam moments of the optax chain
+    ``(add_decayed_weights: EmptyState, (ScaleByAdamState(count, mu, nu),
+    EmptyState()))`` as torch Adam's ``exp_avg`` / ``exp_avg_sq`` / ``step``
+    (kernels transposed), and the step counter."""
+    trainer = AttentionTrainer(cfg, lr, weight_decay, device=device)
+    state = trainer.new_state(ctrl_from_flax(state_np.params, cfg,
+                                             device=trainer.device))
+    _adam_state(state.opt, flax_leaves(state.model), state_np.opt_state[1][0])
+    state.step = int(np.asarray(state_np.step))
+    return state
+
+
 def scene_from_flax(variables_np: Mapping, num_classes: int = 80,
                     input_size: int = 416,
                     device: str | torch.device | None = None) -> SceneSensor:
@@ -162,18 +182,25 @@ def critic_from_flax(params_np: Mapping, obs_dim: int, layer_norm: bool = False,
 def flax_leaves(module: torch.nn.Module):
     """(parameter, flax path, transposed) for every parameter of
     ``module``, in ``module.parameters()`` order (the order of its
-    optimiser's state). Linear ``weight`` ↔ ``kernel`` (transposed),
-    LayerNorm ``weight`` ↔ ``scale``; the Actor's ``dense.i`` ↔
+    optimiser's state). Linear ``weight`` ↔ ``kernel`` (transposed), 1×1
+    Conv2d ``weight`` ↔ ``kernel`` (transposed: OIHW reversed is HWIO when
+    H = W = 1), LayerNorm ``weight`` ↔ ``scale``, a parameter of
+    ``module`` itself ↔ the leaf of its name; the Actor's ``dense.i`` ↔
     ``Dense_i``."""
     kinds = dict(module.named_modules())
     out = []
     for name, prm in module.named_parameters():
-        mod, leaf = name.rsplit(".", 1)
-        linear = isinstance(kinds[mod], torch.nn.Linear)
+        mod, _, leaf = name.rpartition(".")
+        kind = kinds[mod]
+        if isinstance(kind, torch.nn.Conv2d) and kind.kernel_size != (1, 1):
+            raise ValueError(f"{name}: only 1×1 convolutions map by transpose")
+        kernel = leaf == "weight" and isinstance(
+            kind, (torch.nn.Linear, torch.nn.Conv2d))
         if leaf == "weight":
-            leaf = "kernel" if linear else "scale"
-        path = tuple(mod.replace("dense.", "Dense_").split(".")) + (leaf,)
-        out.append((prm, path, linear and leaf == "kernel"))
+            leaf = "kernel" if kernel else "scale"
+        path = (tuple(mod.replace("dense.", "Dense_").split("."))
+                if mod else ()) + (leaf,)
+        out.append((prm, path, kernel))
     return out
 
 

@@ -1,21 +1,29 @@
 """Attention controller: transformer decoder over visual tokens with
-trigger / object / action heads (port of the JAX package's
-``hri/attention_ctrl.py``, the ``visual_token`` input).
+trigger / object / action heads, and its training loss (port of the JAX
+package's ``hri/attention_ctrl.py``).
 
-- inputs: F frames × K tokens of 562-d visual tokens, projected without
-  bias (``vt_fc``);
+- inputs: F frames × K tokens, by ``inputs_type``:
+  - ``visual_token``: 562-d visual tokens, projected without bias
+    (``vt_fc``);
+  - the instance family (``instance`` and the ``without_inst_fm`` /
+    ``_cls`` / ``_pos`` ablations) and ``inst_crop``: the features the
+    variant keeps, concatenated as ``[fm, crop, cls, pos]`` and projected
+    by ``inst_vt_fc`` + ReLU. ``inst_fm`` (512 channels × 5×5) goes
+    through a 1×1 conv + ReLU in NHWC and is flattened in h-w-c order
+    before ``inst_fm_fc`` + ReLU, as flax lays it out; ``inst_crop_feat``
+    (1280-d) through ``inst_crop_fc`` + ReLU;
 - frame-id embedding table ``wfe`` (F+1, D), id 0 is padding (zero row),
   added at every decoder block input;
 - block-causal attention from frame ids, padding mask over absent
   detections;
 - heads: trigger (per frame, on the frame-pooled hidden state), obj_cls
   (per token), action (frame hidden · projected action embeddings ``wae``);
-- test time: temperature softmax + top-k sampling without the null action.
+- test time: temperature softmax + top-k sampling without the null action;
+- training loss: 5·trigger sigmoid-CE + padding-masked obj CE + action
+  NLL per frame (``controller_loss``).
 
 ``AttnCtrlConfig`` keeps every field of the JAX dataclass with its name and
-default, so a bundle manifest's ``ctrl_cfg`` loads unchanged. The
-``instance`` / ``without_*`` inputs, ``controller_loss`` and training are
-not ported yet (ROADMAP).
+default, so a bundle manifest's ``ctrl_cfg`` loads unchanged.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from paddlerobotics_torch.core.device import resolve_device
@@ -57,6 +66,33 @@ class AttnCtrlConfig:
     use_pallas_attention: bool = False
 
 
+INSTANCE_FAMILY = ("instance", "without_inst_fm", "without_inst_cls",
+                   "without_inst_pos")
+INST_FM_CHANNELS = 512          # RoIAligned YOLO tap, 5×5 cells
+INST_FM_CELLS = 25
+INST_CROP_DIM = 1280            # pooled MobileNetV2 features of a crop
+INST_CROP_OUT = 512
+
+
+def variant_token_keys(inputs_type: str) -> tuple:
+    """Token keys an ``inputs_type`` consumes, in the order their features
+    are concatenated."""
+    if inputs_type == "visual_token":
+        return ("visual_tokens",)
+    if inputs_type == "inst_crop":
+        return ("inst_crop_feat", "inst_cls", "inst_pos_emb")
+    if inputs_type not in INSTANCE_FAMILY:
+        raise ValueError(f"unknown inputs_type {inputs_type!r}")
+    keys = []
+    if inputs_type != "without_inst_fm":
+        keys.append("inst_fm")
+    if inputs_type != "without_inst_cls":
+        keys.append("inst_cls")
+    if inputs_type != "without_inst_pos":
+        keys.append("inst_pos_emb")
+    return tuple(keys)
+
+
 class TriggerHead(nn.Module):
     """MLP → 1 logit."""
 
@@ -84,15 +120,31 @@ class AttentionController(nn.Module):
     def __init__(self, cfg: AttnCtrlConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.inputs_type != "visual_token":
-            raise NotImplementedError(
-                f"inputs_type {cfg.inputs_type!r}: the port has the "
-                "visual_token input only")
+        self.token_keys = variant_token_keys(cfg.inputs_type)
         device = resolve_device(device)
         self.cfg = cfg
         D = cfg.model_dim
-        self.vt_fc = nn.Linear(cfg.visual_token_dim, D, bias=False,
-                               device=device)
+        keys = self.token_keys
+        if keys == ("visual_tokens",):
+            self.vt_fc = nn.Linear(cfg.visual_token_dim, D, bias=False,
+                                   device=device)
+        else:
+            width = 0
+            if "inst_fm" in keys:
+                self.inst_fm_conv = nn.Conv2d(
+                    INST_FM_CHANNELS, cfg.inst_fm_reduce_dim, 1,
+                    device=device)
+                self.inst_fm_fc = nn.Linear(
+                    INST_FM_CELLS * cfg.inst_fm_reduce_dim,
+                    cfg.inst_fm_flatten_dim, device=device)
+                width += cfg.inst_fm_flatten_dim
+            if "inst_crop_feat" in keys:
+                self.inst_crop_fc = nn.Linear(INST_CROP_DIM, INST_CROP_OUT,
+                                              device=device)
+                width += INST_CROP_OUT
+            width += (cfg.inst_cls_dim * ("inst_cls" in keys)
+                      + cfg.inst_pos_dim * ("inst_pos_emb" in keys))
+            self.inst_vt_fc = nn.Linear(width, D, device=device)
         self.wfe = nn.Parameter(torch.zeros(cfg.num_frames + 1, D,
                                             device=device))
         self.decoder = TransformerDecoder(
@@ -111,21 +163,54 @@ class AttentionController(nn.Module):
                     p.copy_(torch.rand(p.shape, generator=generator,
                                        device=generator.device))
 
+    def embed(self, tokens: dict) -> torch.Tensor:
+        """The variant's tokens → (B,T,D). ``tokens`` must carry every key
+        of ``token_keys``; other keys are not read."""
+        missing = [k for k in self.token_keys if k not in tokens]
+        if missing:
+            raise KeyError(f"tokens lack {missing} required by inputs_type="
+                           f"{self.cfg.inputs_type!r}")
+        if self.token_keys == ("visual_tokens",):
+            return self.vt_fc(tokens["visual_tokens"])
+        feats = []
+        if "inst_fm" in self.token_keys:
+            fm = tokens["inst_fm"]                       # (B,T,512,5,5)
+            B, T = fm.shape[:2]
+            # the 1×1 conv as a product over channels in NHWC, flattened
+            # (h, w, c) as flax flattens its NHWC output
+            conv = self.inst_fm_conv
+            fm = torch.relu(F.linear(fm.permute(0, 1, 3, 4, 2),
+                                     conv.weight.flatten(1), conv.bias))
+            feats.append(torch.relu(self.inst_fm_fc(fm.reshape(B, T, -1))))
+        if "inst_crop_feat" in self.token_keys:
+            feats.append(torch.relu(self.inst_crop_fc(
+                tokens["inst_crop_feat"])))
+        for k in ("inst_cls", "inst_pos_emb"):
+            if k in self.token_keys:
+                feats.append(tokens[k])
+        return torch.relu(self.inst_vt_fc(torch.cat(feats, dim=-1)))
+
     def forward(self, tokens: dict, frame_ids: torch.Tensor,
                 padding_mask: torch.Tensor,
                 past_kv_arr: Optional[torch.Tensor] = None,
                 past_padding_mask: Optional[torch.Tensor] = None,
                 use_kernel: Optional[bool] = None) -> dict:
-        """tokens {'visual_tokens': (B,T,562)}; frame_ids (B,T) int;
-        padding_mask (B,T) float. Returns the JAX module's dict: hid,
+        """tokens: the variant's inputs (``token_keys``), e.g.
+        {'visual_tokens': (B,T,562)} or {'inst_fm': (B,T,512,5,5),
+        'inst_cls': (B,T,80), 'inst_pos_emb': (B,T,50)}; frame_ids (B,T)
+        int; padding_mask (B,T) float. Returns the JAX module's dict: hid,
         frame_hid, trigger_logits, obj_logits, act_logits, present_kv_arr,
         attn_weights."""
         cfg = self.cfg
         if use_kernel is None:
             use_kernel = cfg.use_pallas_attention
-        x = self.vt_fc(tokens["visual_tokens"])
-        frame_emb = torch.where((frame_ids > 0)[..., None],
-                                self.wfe[frame_ids], 0.0)
+        x = self.embed(tokens)
+        # frame id 0 is padding (a zero row). A one-hot product gives the
+        # gather's values exactly, and its backward sums in a fixed order
+        # (the gather's accumulating backward does not on the CPU)
+        ids = torch.arange(1, cfg.num_frames + 1, device=frame_ids.device)
+        onehot = (frame_ids[..., None] == ids).to(self.wfe.dtype)
+        frame_emb = onehot @ self.wfe[1:]
         attn_mask = frame_ids_to_attn_mask(frame_ids)
         hid, frame_hid, present_kv, attn_w = self.decoder(
             x, frame_emb, attn_mask, padding_mask, past_kv_arr=past_kv_arr,
@@ -141,6 +226,34 @@ class AttentionController(nn.Module):
             "act_logits": act_logits, "present_kv_arr": present_kv,
             "attn_weights": attn_w,
         }
+
+
+def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def controller_loss(cfg: AttnCtrlConfig, outputs: dict,
+                    has_act: torch.Tensor, is_obj: torch.Tensor,
+                    act_ids: torch.Tensor, padding_mask: torch.Tensor):
+    """Training loss → (total, aux) with aux's keys trigger_loss, obj_loss,
+    act_loss, loss. obj_loss is the mean over all tokens of the masked CE
+    (not over the unmasked ones); act_loss sums each window's per-frame NLL
+    over F and divides by ``num_frames``, or takes the last frame's with
+    ``use_last_act_loss``."""
+    trigger_loss = sigmoid_ce(outputs["trigger_logits"], has_act).mean()
+    obj_loss = (sigmoid_ce(outputs["obj_logits"], is_obj)
+                * padding_mask).mean()
+    log_probs = torch.log_softmax(outputs["act_logits"], dim=-1)
+    nll = -torch.gather(log_probs, -1, act_ids.long()[..., None])[..., 0]
+    if cfg.use_last_act_loss:
+        act_loss = nll[:, -1].mean()
+    else:
+        act_loss = (nll.sum(dim=1) / cfg.num_frames).mean()
+    total = (cfg.trigger_loss_coef * trigger_loss
+             + cfg.obj_loss_coef * obj_loss + cfg.act_loss_coef * act_loss)
+    return total, {"trigger_loss": trigger_loss, "obj_loss": obj_loss,
+                   "act_loss": act_loss, "loss": total}
 
 
 def gumbel(shape, generator: torch.Generator) -> torch.Tensor:

@@ -16,7 +16,8 @@ The kernel takes any head dim that is a multiple of 8 up to ``MAX_HD``, and
 q, k and v whose pointers and strides are multiples of 16 bytes (it copies
 them with ``cp.async``). It is built at first use through ``ops/build.py``.
 ``flash_attention.launches`` counts kernel launches (plain-version calls do
-not count); a caller may reset it to 0.
+not count); a caller may reset it to 0. It refuses autograd: see its
+docstring.
 """
 
 from __future__ import annotations
@@ -147,7 +148,18 @@ def launch_args(q, k, v, mask):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """Masked attention; the kernel for CUDA tensors, the plain version
-    (``reference_attention``) for CPU tensors."""
+    (``reference_attention``) for CPU tensors.
+
+    Neither the kernel nor the JAX package's has a backward pass, so a call
+    under grad mode with an input that requires grad raises on every
+    device: its output would carry no gradient to the projections before
+    it. Train through ``masked_attention``; score under
+    ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad or mask.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under torch.no_grad() "
+            "or train through masked_attention")
     dev = q.device
     if dev.type == "cpu":
         return reference_attention(q, k, v, mask)

@@ -1,14 +1,21 @@
 """Checkpoints of the training state with ``torch.save``.
 
-One file per eval window, ``outdir/itr_<step>.pt`` (the reference's .pt +
-.npz pairs, train.py:386-390): the SAC modules' and optimisers' state
-dicts, ``log_alpha`` with its optimiser, and the ETG ``etg_w``, ``etg_b``
-and ``etg_param``. The JAX package's Orbax checkpoints are not read here;
-weights come across through ``convert.sac_from_flax``.
+One file per save, ``outdir/itr_<step>.pt`` (the reference's .pt + .npz
+pairs, train.py:386-390):
+
+- ETG-RL (``save``): the SAC modules' and optimisers' state dicts,
+  ``log_alpha`` with its optimiser, and the ETG ``etg_w``, ``etg_b`` and
+  ``etg_param``;
+- the HRI attention controller (``save_attn``): the controller's and its
+  Adam's state dicts, the step counter and the controller's config.
+
+The JAX package's Orbax checkpoints are not read here; weights come across
+through ``convert.sac_from_flax`` and ``convert.attn_train_from_flax``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict
 
@@ -43,6 +50,32 @@ def save(path: str, sac_state: SACState, etg_w, etg_b, etg_param,
     torch.save({"sac": sac_state_dict(sac_state), "etg_w": etg_w,
                 "etg_b": etg_b, "etg_param": etg_param, "step": step},
                target)
+    return target
+
+
+def attn_state_dict(state) -> Dict[str, Any]:
+    """An ``hri.train_attention.AttnTrainState`` as a dict: the
+    controller's and its optimiser's state dicts and the step."""
+    return {"model": state.model.state_dict(),
+            "opt": state.opt.state_dict(), "step": int(state.step)}
+
+
+def load_attn_state(state, sd: Dict[str, Any]) -> None:
+    """Copy an ``attn_state_dict`` into ``state``, in place: weights, Adam
+    moments and step counts, and the step counter."""
+    state.model.load_state_dict(sd["model"])
+    state.opt.load_state_dict(sd["opt"])
+    state.step = int(sd["step"])
+
+
+def save_attn(path: str, state) -> str:
+    """Write ``path/itr_<state.step>.pt`` for an attention-controller
+    trainer state; returns its path."""
+    os.makedirs(path, exist_ok=True)
+    target = os.path.join(os.path.abspath(path), f"itr_{state.step}.pt")
+    torch.save({"attn": attn_state_dict(state),
+                "ctrl_cfg": dataclasses.asdict(state.model.cfg),
+                "step": int(state.step)}, target)
     return target
 
 

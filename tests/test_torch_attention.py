@@ -268,3 +268,29 @@ def test_attn_bound_at_the_serving_shape():
     assert round(bd["bound_ops_tc_ms"] * 1e3, 2) == 0.50
     assert round(bd["bound_ops_fp32_ms"] * 1e3, 2) == 1.22
     assert bd["bound_ms"] == max(bd["bound_bytes_ms"], bd["bound_ops_tc_ms"])
+
+
+@pytest.mark.parametrize("grad_input", ["q", "k", "v", "mask"])
+def test_flash_attention_refuses_autograd(grad_input):
+    """The kernel has no backward (nor has the JAX one), so its wrapper
+    raises under grad mode when an input requires grad — on the CPU's plain
+    path too — instead of returning an output with no gradient to the
+    projections before it; under ``torch.no_grad()`` the same call runs.
+    A materialized call (``masked_attention``) trains through."""
+    q, k, v, mask, _ = CASES["block_causal"]()
+    args = dict(zip("q k v mask".split(),
+                    (torch.tensor(np.array(x)) for x in (q, k, v, mask))))
+    args[grad_input].requires_grad_(True)
+    launches = attention.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.flash_attention(**args)
+    with torch.no_grad():
+        out = attention.flash_attention(**args)
+    assert attention.flash_attention.launches == launches
+    assert not out.requires_grad
+    ref, _ = attention.masked_attention(**args)
+    np.testing.assert_allclose(out.numpy(), ref.detach().numpy(), atol=ATOL,
+                               rtol=RTOL)
+    if grad_input != "mask":
+        ref.sum().backward()
+        assert args[grad_input].grad is not None

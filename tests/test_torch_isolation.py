@@ -18,17 +18,22 @@ from paddlerobotics_torch.algos.bc import BC
 from paddlerobotics_torch.algos.networks import Actor
 from paddlerobotics_torch.algos.sac import SAC
 from paddlerobotics_torch.cli import (bc_train, dynamics_id, eval_matrix,
-                                      export_gait, pretrain_etg, train_bench)
+                                      export_gait, parallel_train_attn,
+                                      pretrain_etg, train_attention,
+                                      train_bench)
 from paddlerobotics_torch.core.config import ESConfig, QuadrupedConfig
 from paddlerobotics_torch.deploy import (bezier, estimator, policy_export,
                                          realtime)
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
 from paddlerobotics_torch.etg import fit
+from paddlerobotics_torch.hri import export, synthetic_scene
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig)
 from paddlerobotics_torch.hri.perception.scene import SceneSensor
 from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
                                               ServiceConfig)
+from paddlerobotics_torch.hri.train_attention import (AttentionTrainer,
+                                                      synthetic_batch)
 from paddlerobotics_torch.sim import sbatch
 from paddlerobotics_torch.train.bc_train import BCTrainer
 from paddlerobotics_torch.train.dynamics_id import DynamicsIdentifier
@@ -59,7 +64,7 @@ def test_port_imports_no_jax():
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 70, out.stdout
+    assert int(n) >= 76, out.stdout
     assert bad == "[]", out.stdout
 
 
@@ -93,6 +98,15 @@ def _dyn_fields() -> dict:
 
 _SMALL_CTRL = AttnCtrlConfig(num_actions=3, model_dim=8, num_decoder_blocks=1,
                              num_heads=2, ffn_dim=8, act_tr_dim=4)
+_BUNDLE = os.path.join(tempfile.gettempdir(), "torch_isolation_bundle")
+
+
+def _bundle(**kw):
+    export.save_bundle(_BUNDLE, _SMALL_CTRL, AttentionController(
+        _SMALL_CTRL, device="cpu").state_dict())
+    return export.load_bundle(_BUNDLE, **kw).ctrl
+
+
 _ENTRY_POINTS = {
     "Actor": lambda **kw: Actor(49, 12, 8, **kw),
     "actor_from_flax": lambda **kw: convert.actor_from_flax(
@@ -142,6 +156,14 @@ _ENTRY_POINTS = {
     "bezier.init_state": lambda **kw: bezier.init_state(**kw).time,
     "bezier.stepper_init": lambda **kw: bezier.stepper_init(
         **kw).step_length,
+    "AttentionTrainer": lambda **kw: AttentionTrainer(_SMALL_CTRL, **kw),
+    "synthetic_batch": lambda **kw: synthetic_batch(
+        _SMALL_CTRL, np.random.RandomState(0), 1, **kw)["visual_tokens"],
+    "generate_windows_device": lambda **kw: synthetic_scene.
+    generate_windows_device(None, 2, _SMALL_CTRL, **kw)["visual_tokens"],
+    "device_prototypes": lambda **kw: synthetic_scene.device_prototypes(
+        _SMALL_CTRL, **kw)["person"],
+    "load_bundle": _bundle,
 }
 
 
@@ -174,12 +196,17 @@ def _cli_argvs(tmp: pathlib.Path) -> dict:
         "export_gait": (export_gait.main, ["--save", "0"]),
         # the JAX bench's flag is accepted; the bench needs the card
         "train_bench": (train_bench.main, ["--use_pallas", "1"]),
+        "train_attention": (train_attention.main, [
+            "--synthetic", "1", "--epochs", "1", "--outdir", str(tmp)]),
+        "parallel_train_attn": (parallel_train_attn.main, [
+            "--synthetic", "1", "--epochs", "1", "--outdir", str(tmp)]),
     }
 
 
 @pytest.mark.parametrize("name", ["pretrain_etg", "eval_matrix", "bc_train",
                                   "dynamics_id", "export_gait",
-                                  "train_bench"])
+                                  "train_bench", "train_attention",
+                                  "parallel_train_attn"])
 def test_cli_without_device_needs_a_card(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
