@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Builds both hand-written kernels from the checkout (in parallel) and holds
-each against its plain PyTorch version on the card. Drives the two paths
+Builds the three hand-written kernels from the checkout (in parallel) and
+holds each against its plain PyTorch version on the card. Drives the two paths
 of the port through their entry points, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -36,7 +36,17 @@ to 0 just before it and read just after:
   attention, a checkpoint resume, the five-variant ablation fleet
   (``cli.parallel_train_attn``), and checkpoint → ``cli.export_hri_model``
   → ``hri.export.load_bundle`` → the service with the YOLOv4 sensor (6
-  launches per decided frame).
+  launches per decided frame);
+- the HRI tracking and transport stack: the YOLOv3 sensor at 416² serving
+  the 317-action controller, a cfg-built Darknet sensor with its
+  ``.weights`` written and read back, the re-ID encoder on 20 crops, the
+  matching kernel against its plain version on 216 seeded steps, the
+  tracker and ``cli.collect_data.track_frames`` on a 100-frame 360×640 clip
+  (one ``track_match`` launch per frame) through the kernel and through the
+  plain matching, and ``cli.serve_grpc``'s transport-free handlers on 20
+  uint8 BGR ``VideoRequest`` messages and one 10-frame ``EvalRequest``
+  (6 attention launches per decided frame), against the service on the
+  same frames letterboxed by ``hri/utils``.
 
 Times each kernel by CUDA events and by its device time under
 ``torch.profiler``, beside its bounds, its launch plan, its plain version
@@ -146,6 +156,149 @@ HRI_RESUME_STEPS = 10                   # 10 + save/restore + 10 vs 20
 HRI_RESUME_TOL = 2 * HRI_LR
 HRI_FLEET_BATCHES = 2                   # --synthetic 2 --epochs 1
 HRI_BUNDLE_FRAMES = 20                  # decided frames through the bundle
+# the HRI tracking and transport stack: the YOLOv3 sensor at 416² and the
+# 317-action controller (default widths), MarsSmall128 on 128×64 crops,
+# MAX_TRACKS = 32 tracks against the detector's 20 detections
+MATCH_CASES = 216                       # seeded matching steps, 6 kinds
+# the matching's duals are float32: where two assignments' costs differ by
+# an ulp it may take either (tests/test_torch_tracking.py)
+COST_RTOL = 1e-6
+REID_TOL = 1e-4                         # the encoder on the card vs the CPU
+TRACK_FRAMES = 100
+# track_frames through the plain matching (on the host, ~0.1 s per frame):
+# the first frames of the clip, whose logs the kernel's run must repeat
+TRACK_PLAIN_FRAMES = 30
+TRACK_HW = (360, 640)                   # the reference's view frames
+GRPC_FRAMES = 20                        # VideoRequests, 11 of them decided
+GRPC_EVAL_FRAMES = 10                   # one EvalRequest, its last decided
+# a Darknet cfg at 416² with every section type the importer reads: strided
+# and grouped convolutions, both max pools, a shortcut, an upsample, routes
+# with groups and two sources, two [yolo] heads (13² and 52²) with their
+# own scale_x_y; the 512-channel 13² map feeds the tokens
+DARKNET_CFG = """
+[net]
+width=416
+height=416
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=2
+pad=1
+activation=mish
+
+[route]
+layers=-1
+groups=2
+group_id=1
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[shortcut]
+from=-2
+activation=linear
+
+[convolutional]
+batch_normalize=1
+filters=256
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[maxpool]
+size=5
+stride=1
+
+[convolutional]
+batch_normalize=1
+filters=512
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=0
+filters=255
+size=1
+stride=1
+pad=1
+activation=linear
+
+[yolo]
+mask=6,7,8
+anchors=12,16, 19,36, 40,28, 36,75, 76,55, 72,146, 142,110, 192,243, 459,401
+classes=80
+scale_x_y=1.05
+
+[route]
+layers=-4
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[upsample]
+stride=2
+
+[route]
+layers=-1,-9
+
+[convolutional]
+batch_normalize=0
+filters=255
+size=1
+stride=1
+pad=1
+activation=linear
+
+[yolo]
+mask=0,1,2
+anchors=12,16, 19,36, 40,28, 36,75, 76,55, 72,146, 142,110, 192,243, 459,401
+classes=80
+scale_x_y=1.2
+"""
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -219,7 +372,7 @@ def main() -> int:
     from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
     from paddlerobotics_torch.etg import fit
     from paddlerobotics_torch.algos.networks import Actor
-    from paddlerobotics_torch.ops import attention, physics_step
+    from paddlerobotics_torch.ops import attention, lap, physics_step
     from paddlerobotics_torch.sim import sbatch, terrain
     from paddlerobotics_torch.train import etg_rl
     from paddlerobotics_torch.utils import profiler
@@ -234,11 +387,13 @@ def main() -> int:
 
     # --- build: one nvcc per source, started together --------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(physics_step.build), ex.submit(attention.build)]:
+    with ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(physics_step.build), ex.submit(attention.build),
+                  ex.submit(lap.build)]:
             f.result()
     for name, info in (("physics_step", physics_step.build_info),
-                       ("attention", attention.build_info)):
+                       ("attention", attention.build_info),
+                       ("track_match", lap.build_info)):
         regs = {instance(k): v for k, v in info["ptxas"].items()}
         log("build", kernel=name, seconds=round(info["seconds"], 1),
             ptxas=json.dumps(regs, sort_keys=True))
@@ -565,7 +720,10 @@ def main() -> int:
     }]
     attn_entry, scene = hri_phases(dev, card)
     attn_entry.update(hri_train_phases(dev, card, scene))
-    kernels.append(attn_entry)
+    del scene
+    track_entry, track_launches = hri_track_phases(dev, card)
+    attn_entry.update(track_launches)
+    kernels += [attn_entry, track_entry]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1786,6 +1944,472 @@ def hri_train_phases(dev, card, scene) -> dict:
     return {"hri_train_launches": train_launches,
             "hri_eval_launches": eval_launches,
             "hri_bundle_launches": bundle_launches}
+
+
+def track_match_bound(T: int, D: int, scans: int, solves: int) -> dict:
+    """Least time of one matching step on the card (ms): the two (T, D)
+    cost matrices, status, age and the detection mask read once and the
+    assignment and matched mask written once, at the HBM rate; and the
+    plain version's arithmetic on these inputs at the FP32 peak: per
+    Dijkstra scan 8 per column of the n = max(T, D) square (three adds, a
+    compare, three selects, the argmin's compare), per solve the gating
+    (a min and a select per entry) and the dual updates (5 per row)."""
+    n = max(T, D)
+    n_bytes = 4 * (2 * T * D + 2 * T) + D + 4 * T + D
+    ops = scans * 8 * n + solves * (2 * n * n + 5 * n)
+    b_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    b_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return {"bytes": n_bytes, "ops": ops, "bound_bytes_ms": b_bytes,
+            "bound_ops_ms": b_ops, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+
+
+def match_cases(rng, n_cases: int):
+    """Seeded matching steps for ``[track_match_vs_plain]``: (name, cost1,
+    iou_cost, status, tsu, det_valid, max_cosine_distance) as numpy, T and
+    D from 1 to 32, in six kinds: random costs with gated entries, exact
+    ties, costs at the threshold and at the clip constant, no eligible row,
+    no eligible column, and full square problems without gates (held
+    against scipy)."""
+    from paddlerobotics_torch.hri import tracker as trk
+    from paddlerobotics_torch.ops import lap
+
+    kinds = ("random", "ties", "at_clip", "no_rows", "no_cols", "no_gates")
+    out = []
+    for i in range(n_cases):
+        kind = kinds[i % len(kinds)]
+        T, D = (int(x) for x in rng.integers(1, lap.MAX_N + 1, 2))
+        max_cos = (0.2, 0.3)[i % 2]
+        cost1 = rng.uniform(0.0, 2 * max_cos, (T, D))
+        cost1[rng.random((T, D)) < 0.15] = trk.INF
+        iou = rng.uniform(0.0, 1.0, (T, D))
+        status = rng.integers(0, 3, T)
+        tsu = rng.integers(0, 6, T)
+        valid = rng.random(D) < 0.8
+        if kind == "ties":
+            cost1 = rng.choice([0.0, 0.1, 0.2, max_cos], (T, D))
+            iou = rng.choice([0.3, 0.6, 0.7, 1.0], (T, D))
+        elif kind == "at_clip":
+            clip = np.float32(lap.clip_value(max_cos))
+            cost1 = rng.choice([max_cos, clip, np.nextafter(
+                clip, np.float32(1.0)), 0.5 * max_cos], (T, D))
+            iou = rng.choice([0.7, np.float32(lap.clip_value(0.7)), 0.2],
+                             (T, D))
+        elif kind == "no_rows":
+            status = np.zeros(T, int)
+        elif kind == "no_cols":
+            valid = np.zeros(D, bool)
+        elif kind == "no_gates":
+            D = min(D, T)
+            cost1 = rng.uniform(0.0, max_cos, (T, D))
+            iou = rng.uniform(0.0, 1.0, (T, D))
+            status = np.full(T, trk.CONFIRMED)
+            tsu = np.ones(T, int)
+            valid = np.ones(D, bool)
+        out.append((kind, cost1.astype(np.float32), iou.astype(np.float32),
+                    status.astype(np.int32), tsu.astype(np.int32), valid,
+                    max_cos))
+    return out
+
+
+def walker_clip(dev, frames: int, n: int, D: int, seed: int):
+    """A synthetic clip for ``[track]``: n rectangles walking at constant
+    velocity (stopped at the edges) over a noisy 360×640 background (uint8 RGB (frames,360,640,3)
+    on the card), each with a fixed seeded 128-d appearance; per frame its
+    boxes with 1.5 px of noise and the features with 5% noise, as the
+    tracker's (D,4), (D,128), (D,) inputs."""
+    rng = np.random.default_rng(seed)
+    H, W = TRACK_HW
+    base = rng.standard_normal((n, 128))
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    size = np.stack([rng.uniform(40, 60, n), rng.uniform(100, 160, n)], 1)
+    start = np.stack([30 + (W - 100) / n * np.arange(n),
+                      rng.uniform(20, H - 180, n)], 1)
+    # vertical walks, a slow drift across: neighbours never meet
+    vel = np.stack([rng.uniform(-0.2, 0.2, n), rng.uniform(-1, 1, n)], 1)
+    colors = rng.integers(0, 256, (n, 3))
+    g = torch.Generator(dev)
+    g.manual_seed(seed)
+    clip = torch.randint(60, 120, (frames, H, W, 3), generator=g,
+                         device=dev, dtype=torch.uint8)
+    boxes = np.zeros((frames, D, 4), np.float32)
+    feats = np.zeros((frames, D, 128), np.float32)
+    valid = np.zeros((frames, D), bool)
+    for f in range(frames):
+        for k in range(n):
+            lo = np.clip(start[k] + vel[k] * f, 0, [W - size[k, 0],
+                                                    H - size[k, 1]])
+            x0, y0 = int(lo[0]), int(lo[1])
+            x1, y1 = int(lo[0] + size[k, 0]), int(lo[1] + size[k, 1])
+            clip[f, y0:y1, x0:x1] = torch.as_tensor(colors[k],
+                                                    dtype=torch.uint8)
+            boxes[f, k] = [x0, y0, x1, y1] + rng.normal(0, 1.5, 4)
+            feats[f, k] = base[k] + 0.05 * rng.standard_normal(128)
+            valid[f, k] = True
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return clip, t(boxes), t(feats), t(valid)
+
+
+def hri_track_phases(dev, card) -> dict:
+    """The HRI tracking and transport stack at full width: the YOLOv3 scene
+    sensor serving the 317-action controller (``[yolov3]``), a cfg-built
+    Darknet sensor and its ``.weights`` round trip (``[darknet]``), the
+    re-ID encoder (``[reid]``), the matching kernel against its plain
+    version (``[track_match_vs_plain]``), the tracker and
+    ``cli.collect_data.track_frames`` on a 100-frame clip through the kernel
+    and through the plain matching (``[track]``), and ``cli.serve_grpc``'s
+    transport-free handlers on the reference's wire messages
+    (``[serve_grpc]``). Returns the ``track_match`` entry of the
+    ``kernels`` line and the attention launches of these phases."""
+    import shutil
+
+    from scipy.optimize import linear_sum_assignment
+
+    from paddlerobotics_torch.cli import collect_data, serve_grpc
+    from paddlerobotics_torch.hri import export, tracker as trk
+    from paddlerobotics_torch.hri import grpc_transport as gt
+    from paddlerobotics_torch.hri import pg_proto as pb
+    from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
+                                                         AttnCtrlConfig)
+    from paddlerobotics_torch.hri.perception import darknet
+    from paddlerobotics_torch.hri.perception.reid import MarsSmall128
+    from paddlerobotics_torch.hri.perception.scene import (DarknetSceneSensor,
+                                                           SceneSensor)
+    from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
+                                                  ServiceConfig)
+    from paddlerobotics_torch.hri.utils import letterbox_image
+    from paddlerobotics_torch.ops import attention, lap
+    from paddlerobotics_torch.utils import profiler
+
+    out_root = ROOT / "build" / "chip_smoke" / "track"
+    shutil.rmtree(out_root, ignore_errors=True)
+    rng = np.random.default_rng(8)
+
+    def seeded(seed):
+        g = torch.Generator(dev)
+        g.manual_seed(seed)
+        return g
+
+    def host_ms(fn, reps):
+        """Median host ms per call with no synchronize: dispatch time."""
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        return float(np.median(ts))
+
+    # --- [yolov3]: the YOLOv3 sensor serving the 317-action controller -------
+    scene3 = SceneSensor(input_size=SIZE, arch="yolov3", device=dev,
+                         generator=seeded(20))
+    ctrl = AttentionController(AttnCtrlConfig(num_actions=317), device=dev,
+                               generator=seeded(21))
+    scfg = ServiceConfig(trigger_threshold=0.0, wakeup_cooldown_s=0.0,
+                         near_field_frac=0.0)
+    frames = rng.random((FRAMES, SIZE, SIZE, 3), dtype=np.float32)
+    img = torch.as_tensor(frames[0], device=dev)[None]
+    inst = scene3.get_instances_with_feats(img)            # warm-up
+    svc = ProactiveGreetingService(scfg, scene3, ctrl, generator=seeded(22),
+                                   device=dev)
+    attention.flash_attention.launches = 0
+    decisions = [svc.process_frame(f) for f in frames]
+    torch.cuda.synchronize()
+    v3_launches = attention.flash_attention.launches
+    decided = [d for d in decisions if "trigger_score" in d]
+    detect = lambda: scene3.get_instances_with_feats(img)
+    prof = profiler.device_breakdown(detect, reps=5)
+    v3_host = host_ms(detect, 5)
+    ok = (tuple(inst.tokens.shape) == (1, 20, 562) and
+          bool(torch.isfinite(inst.tokens).all().item()) and
+          v3_launches == 6 * len(decided) == 18 and
+          all(np.isfinite(d["trigger_score"]) for d in decided))
+    log("yolov3", frames=FRAMES, decided=len(decided), launches=v3_launches,
+        detections=int(inst.valid.sum()), fm=json.dumps(
+            list(scene3.model(img.permute(0, 3, 1, 2))[1].shape)),
+        detect_device_ms=round(prof["device_ms_per_call"], 4),
+        detect_kernels=prof["kernels_per_call"],
+        detect_wall_ms=round(prof["wall_ms_per_call"], 3),
+        detect_host_ms=round(v3_host, 3),
+        detect_busy=round(prof["device_busy_share"], 4),
+        top=json.dumps(prof["top"]),
+        trigger_scores=json.dumps([round(d["trigger_score"], 4)
+                                   for d in decided]),
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the YOLOv3 sensor's service failed its checks")
+
+    # --- [darknet]: a cfg-built sensor, .weights out and back in -------------
+    sections = darknet.parse_cfg(DARKNET_CFG)
+    dn = DarknetSceneSensor(sections, device=dev, generator=seeded(23))
+    with torch.no_grad():                       # BatchNorm statistics too
+        for m in dn.model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t in (m.weight, m.running_var):
+                    t.uniform_(0.5, 1.5, generator=seeded(24))
+                for t in (m.bias, m.running_mean):
+                    t.normal_(0.0, 0.1, generator=seeded(25))
+    blob = darknet.save_darknet_weights(dn.model, sections)
+    dn2 = DarknetSceneSensor(sections, device=dev, generator=seeded(26))
+    darknet.load_darknet_weights(dn2.model, sections, blob)
+    a = dn.get_instances_with_feats(img)
+    b = dn2.get_instances_with_feats(img)
+    d_dn = max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a, b))
+    n_floats = (len(blob) - 20) // 4
+    per_conv = sum(getattr(dn.model, f"conv{li}").weight.numel()
+                   + getattr(dn.model, f"conv{li}").out_channels *
+                   (4 if bn else 1) for li, bn in darknet._conv_layers(
+                       sections))
+    dprof = profiler.device_breakdown(lambda: dn.get_instances_with_feats(
+        img), reps=5)
+    ok = (d_dn == 0.0 and n_floats == per_conv and
+          tuple(a.tokens.shape) == (1, 20, 562) and
+          bool(torch.isfinite(a.tokens).all().item()))
+    log("darknet", sections=len(sections), convs=len(list(
+        darknet._conv_layers(sections))), fm_layer=dn.fm_layer,
+        heads=len(dn.metas), blob_bytes=len(blob), floats=n_floats,
+        floats_by_conv=per_conv, max_abs_diff_after_load=d_dn,
+        detections=int(a.valid.sum()),
+        detect_device_ms=round(dprof["device_ms_per_call"], 4),
+        detect_kernels=dprof["kernels_per_call"],
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the Darknet sensor's weights did not round-trip")
+
+    # --- [reid]: 20 crops through MarsSmall128 --------------------------------
+    reid = MarsSmall128(device=dev, generator=seeded(27))
+    crops = torch.rand((20, 128, 64, 3), generator=seeded(28), device=dev)
+    with torch.no_grad():
+        feats = reid(crops)
+        feats_cpu = MarsSmall128(device="cpu").eval()
+        feats_cpu.load_state_dict({k: v.cpu()
+                                   for k, v in reid.state_dict().items()})
+        d_cpu = (feats.cpu() - feats_cpu(crops.cpu())).abs().max().item()
+    norms = feats.norm(dim=-1)
+    rprof = profiler.device_breakdown(lambda: reid(crops), reps=10)
+    ok = (tuple(feats.shape) == (20, 128) and
+          (norms - 1).abs().max().item() < 1e-5 and d_cpu < REID_TOL)
+    log("reid", crops=20, max_norm_err=(norms - 1).abs().max().item(),
+        max_abs_diff_vs_cpu=d_cpu, tol=REID_TOL,
+        device_ms=round(rprof["device_ms_per_call"], 4),
+        kernels=rprof["kernels_per_call"],
+        wall_ms=round(rprof["wall_ms_per_call"], 3),
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the re-ID encoder failed its checks")
+
+    # --- [track_match_vs_plain]: the kernel against its plain version ---------
+    failed, kinds, gaps = [], {}, []
+    for name, c1, iou, st, ts, dv, mc in match_cases(rng, MATCH_CASES):
+        host = [torch.as_tensor(x) for x in (c1, iou, st, ts, dv)]
+        card_args = [x.to(dev) for x in host]
+        work_k = torch.zeros(2, dtype=torch.int32, device=dev)
+        work_p = torch.zeros(2, dtype=torch.int32)
+        a_k, m_k = lap.track_match(*card_args, mc, work=work_k)
+        a_p, m_p = lap.track_match_plain(*host, mc, work=work_p)
+        same = (torch.equal(a_k.cpu(), a_p) and torch.equal(m_k.cpu(), m_p)
+                and torch.equal(work_k.cpu(), work_p))
+        if name == "no_gates":
+            T = c1.shape[0]
+            r, c = linear_sum_assignment(c1)
+            a = a_k.cpu().numpy()
+            ours = c1[np.arange(T)[a >= 0], a[a >= 0]].sum(dtype=np.float64)
+            ref = c1[r, c].sum(dtype=np.float64)
+            gaps.append(abs(ours - ref) / max(ref, 1e-30))
+            same &= int((a >= 0).sum()) == len(r) and gaps[-1] <= COST_RTOL
+        kinds.setdefault(name, [0, 0])[0] += 1
+        kinds[name][1] += int(work_p[1])
+        if not same:
+            failed.append(name)
+    torch.cuda.synchronize()
+    log("track_match_vs_plain", cases=MATCH_CASES,
+        kinds=json.dumps(kinds), equal=MATCH_CASES - len(failed),
+        max_rel_cost_gap_vs_scipy=max(gaps), cost_rtol=COST_RTOL,
+        result="pass" if not failed else "FAIL")
+    if failed:
+        raise RuntimeError(f"track_match disagrees with plain in {failed}")
+
+    # --- [track]: the tracker, then track_frames, on a 100-frame clip -------
+    clip, wboxes, wfeats, wvalid = walker_clip(dev, TRACK_FRAMES, 5, 20, 9)
+    state = trk.init_tracker(dev)
+    ids = []
+    lap.track_match.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(TRACK_FRAMES):
+        state = trk.tracker_predict(state)
+        state, tid = trk.tracker_update(state, wboxes[f], wfeats[f],
+                                        wvalid[f])
+        ids.append(tid[:5])
+    ids = torch.stack(ids).cpu().numpy()
+    tracker_s = time.perf_counter() - t0
+    tracker_launches = lap.track_match.launches
+    stable = all(len(set(ids[4:, k])) == 1 and ids[-1, k] > 0
+                 for k in range(5)) and len(set(ids[-1])) == 5
+
+    def run_frames(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs = collect_data.track_frames(clip[:n], scene3, reid)
+        return logs, (time.perf_counter() - t) / n
+
+    collect_data.track_frames(clip[:2], scene3, reid)         # warm-up
+    lap.track_match.launches = 0
+    logs_k, frame_s = run_frames(TRACK_FRAMES)
+    frames_launches = lap.track_match.launches
+    plain_host = lambda *a: tuple(t.to(dev) for t in lap.track_match_plain(
+        *[x.cpu() for x in a[:5]], *a[5:8]))
+    kernel_wrapper = lap.track_match
+    lap.track_match = plain_host
+    try:
+        logs_p, plain_s = run_frames(TRACK_PLAIN_FRAMES)
+    finally:
+        lap.track_match = kernel_wrapper
+    n_ids = len({k for tl, _ in logs_k for k in tl})
+    logs_equal = logs_k[:TRACK_PLAIN_FRAMES] == logs_p
+    ok = (stable and tracker_launches == TRACK_FRAMES and
+          frames_launches == TRACK_FRAMES and logs_equal)
+    log("track", frames=TRACK_FRAMES, hw=json.dumps(TRACK_HW), walkers=5,
+        walker_ids=json.dumps(ids[-1].tolist()), walker_ids_stable=stable,
+        tracker_ms_per_frame=round(1e3 * tracker_s / TRACK_FRAMES, 3),
+        tracker_launches=tracker_launches,
+        track_frames_ms_per_frame=round(1e3 * frame_s, 3),
+        track_frames_launches=frames_launches,
+        plain_frames=TRACK_PLAIN_FRAMES,
+        plain_matching_ms_per_frame=round(1e3 * plain_s, 3),
+        logs_equal=logs_equal, detections=sum(len(d) for _, d in logs_k),
+        track_ids=n_ids, result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("tracking failed its checks (ids, launches or "
+                           "kernel vs plain logs)")
+
+    # the kernel's time at the tracker's shape, on the inputs of the
+    # clip's seventh update
+    st0 = trk.init_tracker(dev)
+    for f in range(6):
+        st0, _ = trk.tracker_update(trk.tracker_predict(st0), wboxes[f],
+                                    wfeats[f], wvalid[f])
+    captured = []
+    lap.track_match = lambda *a: captured.append(a[:5]) or plain_host(*a)
+    try:
+        trk.tracker_update(trk.tracker_predict(st0), wboxes[6], wfeats[6],
+                           wvalid[6])
+    finally:
+        lap.track_match = kernel_wrapper
+    args = captured[0]
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
+    lap.track_match(*args, work=work)
+    scans, solves = (int(x) for x in work.cpu())
+    kern = lambda: lap.track_match(*args)
+    plain = lambda: lap.track_match_plain(*args)
+    host_args = [x.cpu() for x in args]
+    plain_cpu = lambda: lap.track_match_plain(*host_args)
+    ms = [timed(kern, 200, 20), timed(plain, 3, 1), timed(plain, 3, 0),
+          timed(kern, 200, 0)]
+    kernel_ms, plain_ms = min(ms[0], ms[3]), min(ms[1], ms[2])
+    t = time.perf_counter()
+    for _ in range(10):
+        plain_cpu()
+    plain_cpu_ms = 1e3 * (time.perf_counter() - t) / 10
+    kprof = profiler.device_breakdown(kern, reps=50, match="track_match")
+    kernel_dev = (kprof["match_ms_per_call"]
+                  / max(kprof["match_launches_per_call"], 1e-9))
+    T, D = args[0].shape
+    bd = track_match_bound(T, D, scans, solves)
+    ptxas = {instance(k): v for k, v in lap.build_info["ptxas"].items()}
+    log("track_match_time", T=T, D=D, scans=scans, solves=solves,
+        kernel_ms=round(kernel_ms, 5),
+        kernel_device_ms=round(kernel_dev, 5),
+        plain_card_ms=round(plain_ms, 3), plain_cpu_ms=round(plain_cpu_ms, 3),
+        bytes=bd["bytes"], ops=bd["ops"],
+        bound_bytes_ms=bd["bound_bytes_ms"], bound_ops_ms=bd["bound_ops_ms"],
+        bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+        us_per_scan=round(1e3 * kernel_dev / max(scans, 1), 4),
+        ptxas=json.dumps(ptxas), card=repr(card))
+
+    # --- [serve_grpc]: the handlers on the reference's wire messages ----------
+    bundle_dir = out_root / "bundle"
+    export.save_bundle(str(bundle_dir), ctrl.cfg, ctrl.state_dict(),
+                       scene=scene3, extra={"trigger_threshold": 0.0})
+    argv = ["--bundle", str(bundle_dir), "--device", dev.type]
+    process, score_clip, _ = serve_grpc.build_services(
+        serve_grpc.build_parser().parse_args(argv))
+    greet = gt.greeting_handler(process, device=dev)
+    evalh = gt.eval_handler(score_clip, device=dev)
+    views = clip[:GRPC_FRAMES].flip(-1).cpu().numpy()      # uint8 BGR
+    reqs = [pb.VideoRequest(req_id=i, cur_frame=v.tobytes()).encode()
+            for i, v in enumerate(views)]
+    attention.flash_attention.launches = 0
+    lat, got = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        t = time.perf_counter()
+        got.append(json.loads(pb.InferResponse.decode(greet(r)).response))
+        lat.append(1e3 * (time.perf_counter() - t))
+    wall = time.perf_counter() - t0
+    grpc_launches = attention.flash_attention.launches
+    for i, d in enumerate(got):
+        if d.pop("req_id") != i:
+            raise RuntimeError("a response came back with another req_id")
+    # the same frames letterboxed by hri/utils, into a service on the
+    # modules the bundle was written from
+    ref_cfg = ServiceConfig(num_frames=ctrl.cfg.num_frames,
+                            tokens_per_frame=ctrl.cfg.tokens_per_frame,
+                            trigger_threshold=0.0)
+    lb = lambda v: letterbox_image(torch.as_tensor(
+        np.ascontiguousarray(v[..., ::-1]), device=dev).to(torch.float32)
+        / 255.0)
+    ref_svc = ProactiveGreetingService(ref_cfg, scene3, ctrl, device=dev)
+    want = [ref_svc.process_frame(lb(v)) for v in views]
+    decided = sum("trigger_score" in d for d in got)
+    stack = views[:GRPC_EVAL_FRAMES]
+    attention.flash_attention.launches = 0
+    ev = pb.EvalResponse.decode(evalh(pb.EvalRequest(
+        nframe=len(stack), frames=stack.tobytes()).encode()))
+    eval_launches = attention.flash_attention.launches
+    eval_svc = ProactiveGreetingService(ref_cfg, scene3, ctrl, device=dev)
+    last = [eval_svc.process_frame(lb(v)) for v in stack][-1]
+    eval_same = (ev.trigger_pred == float(np.float32(last["trigger_score"]))
+                 and json.loads(ev.response) == last)
+    ok = (got == want and eval_same and
+          grpc_launches == 6 * decided and decided == GRPC_FRAMES - 9 and
+          eval_launches == 6)
+    log("serve_grpc", arch="yolov3", frames=GRPC_FRAMES, view=json.dumps(
+        list(views.shape[1:])), decided=decided, launches=grpc_launches,
+        decisions_equal=got == want,
+        triggered=sum(bool(d["triggered"]) for d in got),
+        frames_per_s=round(GRPC_FRAMES / wall, 3),
+        p50_ms=round(float(np.percentile(lat, 50)), 3),
+        p99_ms=round(float(np.percentile(lat, 99)), 3),
+        eval_frames=len(stack), eval_launches=eval_launches,
+        eval_trigger_pred=ev.trigger_pred, eval_equal=eval_same,
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("serve_grpc's handlers disagree with the service "
+                           "on letterboxed frames, or launched wrongly")
+
+    entry = {
+        "name": "track_match",
+        "route": "cuda",
+        "source": "paddlerobotics_torch/ops/csrc/track_match.cu",
+        "replaces": "paddlerobotics_tpu/hri/tracker.py:196",
+        "replaces_kind": "jitted XLA, no pallas_call",
+        "launches": frames_launches,
+        "max_abs_err": 0.0 if not failed else None,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bd["bound_ms"],
+        "bound_by": bd["bound_by"],
+        "library_ms": None,
+        "device_ms": kernel_dev,
+        "plain_cpu_ms": plain_cpu_ms,
+        "tracker_launches": tracker_launches,
+    }
+    return entry, {"yolov3_launches": v3_launches,
+                   "serve_grpc_launches": grpc_launches,
+                   "serve_grpc_eval_launches": eval_launches}
 
 
 def count_ops_per_env(sim, h_fn) -> float:

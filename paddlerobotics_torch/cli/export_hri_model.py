@@ -8,8 +8,9 @@ scripts/save_infer_model_params.py).
 Reads a ``cli.train_attention`` checkpoint on the CPU and writes the
 port's bundle (``hri.export``); ``hri.export.load_bundle`` builds it on the
 card. The width flags must describe the checkpoint's controller.
-``--darknet_cfg`` (a Darknet scene sensor in the bundle) is refused: the
-Darknet importer is not ported yet.
+``--darknet_cfg`` adds a scene sensor built from a Darknet cfg at 416²
+(``DarknetSceneSensor``), its weights from ``--darknet_weights`` when given
+and otherwise drawn from a seed; the bundle's manifest names both files.
 """
 
 from __future__ import annotations
@@ -31,9 +32,9 @@ def build_parser():
     p.add_argument("--num_heads", type=int, default=8)
     p.add_argument("--ffn_dim", type=int, default=2048)
     p.add_argument("--darknet_cfg", type=str, default="",
-                   help="darknet .cfg → scene params too (not ported: "
-                   "refused)")
-    p.add_argument("--darknet_weights", type=str, default="")
+                   help="darknet .cfg → scene params too")
+    p.add_argument("--darknet_weights", type=str, default="",
+                   help="darknet .weights for --darknet_cfg")
     p.add_argument("--wae", type=str, default="",
                    help="action embedding table .npy")
     p.add_argument("--trigger_threshold", type=float, default=0.8)
@@ -42,10 +43,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.darknet_cfg or args.darknet_weights:
-        raise SystemExit("--darknet_cfg / --darknet_weights: the Darknet "
-                         "importer is not ported yet")
     import numpy as np
+    import torch
 
     from paddlerobotics_torch.cli.train_attention import ctrl_config
     from paddlerobotics_torch.hri import export as export_mod
@@ -57,10 +56,28 @@ def main(argv=None):
     # the flags' controller must take the checkpoint's weights
     ctrl = AttentionController(cfg, device="cpu")
     ctrl.load_state_dict(restored["attn"]["model"])
+    scene = scene_meta = None
+    if args.darknet_cfg:
+        from paddlerobotics_torch.hri.perception import darknet
+        from paddlerobotics_torch.hri.perception.scene import \
+            DarknetSceneSensor
+
+        with open(args.darknet_cfg) as f:
+            sections = darknet.parse_cfg(f.read())
+        gen = torch.Generator()
+        gen.manual_seed(1)
+        scene = DarknetSceneSensor(sections, input_size=416, device="cpu",
+                                   generator=gen)
+        if args.darknet_weights:
+            darknet.load_darknet_weights(scene.model, sections,
+                                         args.darknet_weights)
+        scene_meta = {"cfg": args.darknet_cfg,
+                      "weights": args.darknet_weights}
     wae = np.load(args.wae) if args.wae else None
     export_mod.save_bundle(
-        args.out, cfg, ctrl.state_dict(), wae=wae,
-        extra={"trigger_threshold": args.trigger_threshold})
+        args.out, cfg, ctrl.state_dict(), scene=scene, wae=wae,
+        extra={"trigger_threshold": args.trigger_threshold},
+        scene_meta=scene_meta)
     print(f"bundle written to {args.out}")
 
 

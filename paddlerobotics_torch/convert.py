@@ -2,8 +2,9 @@
 
 Takes plain numpy arrays (the caller does ``np.asarray`` on the JAX side)
 and builds the port's modules and state types; imports nothing of JAX.
-Modules whose submodules carry flax's scope names (the HRI controller and
-YOLOv4) load a flax variable tree by path with ``load_flax``.
+Modules whose submodules carry flax's scope names (the HRI controller,
+YOLOv4 and YOLOv3, the Darknet network, the re-ID encoder) load a flax
+variable tree by path with ``load_flax``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from paddlerobotics_torch.core.config import SACConfig
 from paddlerobotics_torch.core.device import resolve_device
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig)
-from paddlerobotics_torch.hri.perception.scene import SceneSensor
+from paddlerobotics_torch.hri.perception.reid import MarsSmall128
+from paddlerobotics_torch.hri.perception.scene import (DarknetSceneSensor,
+                                                       SceneSensor)
 from paddlerobotics_torch.hri.train_attention import (AttentionTrainer,
                                                       AttnTrainState)
 from paddlerobotics_torch.sim.sbatch import (BContact, BDynParams, BQuadState,
@@ -157,13 +160,36 @@ def attn_train_from_flax(state_np, cfg: AttnCtrlConfig, lr: float = 1e-4,
 
 
 def scene_from_flax(variables_np: Mapping, num_classes: int = 80,
-                    input_size: int = 416,
+                    input_size: int = 416, arch: str = "yolov4",
                     device: str | torch.device | None = None) -> SceneSensor:
-    """Flax YOLOv4 variables (``params`` and ``batch_stats``) → the port's
-    ``SceneSensor``, on the card unless ``device`` says otherwise."""
-    scene = SceneSensor(num_classes, input_size, device=device)
+    """Flax YOLOv4 or YOLOv3 variables (``params`` and ``batch_stats``) →
+    the port's ``SceneSensor``, on the card unless ``device`` says
+    otherwise."""
+    scene = SceneSensor(num_classes, input_size, arch, device=device)
     load_flax(scene.model, variables_np)
     return scene
+
+
+def darknet_from_flax(variables_np: Mapping, sections,
+                      input_size: int | None = None,
+                      fm_layer: int | None = None,
+                      device: str | torch.device | None = None
+                      ) -> DarknetSceneSensor:
+    """Flax ``DarknetNet`` variables (``conv{i}`` / ``bn{i}``) → the port's
+    ``DarknetSceneSensor``, on the card unless ``device`` says otherwise."""
+    scene = DarknetSceneSensor(sections, input_size, fm_layer, device=device)
+    load_flax(scene.model, variables_np)
+    return scene
+
+
+def reid_from_flax(variables_np: Mapping,
+                   device: str | torch.device | None = None) -> MarsSmall128:
+    """Flax ``MarsSmall128`` variables (``params`` and ``batch_stats``) →
+    the port's encoder, on the card unless ``device`` says otherwise; its
+    ``state_dict()`` is what ``cli.collect_data --encoder_params`` reads."""
+    reid = MarsSmall128(device=device)
+    load_flax(reid, variables_np)
+    return reid
 
 
 def critic_from_flax(params_np: Mapping, obs_dim: int, layer_norm: bool = False,

@@ -6,13 +6,16 @@ The bundle is a directory:
 
     manifest.json     "format": "paddlerobotics_torch.hri.bundle.v1",
                       ctrl_cfg (every AttnCtrlConfig field), scene (the
-                      scene sensor's geometry), extra
+                      scene sensor's arch and geometry; for a Darknet
+                      sensor its cfg sections, feature-map layer and the
+                      meta {"cfg", "weights"} it was built from), extra
                       (thresholds), has_scene_params, has_wae
     ctrl_state.pt     the attention controller's state dict
-    scene_state.pt    the YOLOv4 scene sensor's state dict (optional)
+    scene_state.pt    the scene sensor's state dict (optional): YOLOv4,
+                      YOLOv3 or a Darknet cfg network
     wae.npy           the multimodal action embedding table (optional)
 
-``load_bundle`` builds the controller (and the ``SceneSensor``) on the card
+``load_bundle`` builds the controller (and the scene sensor) on the card
 unless ``device`` says otherwise: everything ``hri.serving.
 ProactiveGreetingService`` needs to serve. A JAX bundle's params come
 across through ``convert.ctrl_from_flax`` after flax has read them.
@@ -43,23 +46,31 @@ class Bundle(NamedTuple):
     manifest: dict
     ctrl_cfg: AttnCtrlConfig
     ctrl: AttentionController
-    scene: Optional[object]         # hri.perception.scene.SceneSensor
+    scene: Optional[object]         # a hri.perception.scene sensor
     wae: Optional[np.ndarray]
 
 
 def save_bundle(path: str, ctrl_cfg: AttnCtrlConfig,
                 ctrl_state: dict, scene=None,
                 wae: Optional[np.ndarray] = None,
-                extra: Optional[dict] = None) -> None:
+                extra: Optional[dict] = None,
+                scene_meta: Optional[dict] = None) -> None:
     """Write a bundle: ``ctrl_state`` is the controller's state dict;
-    ``scene`` a ``SceneSensor`` whose weights and geometry are kept."""
+    ``scene`` a ``SceneSensor`` or ``DarknetSceneSensor`` whose weights and
+    geometry are kept; ``scene_meta`` what a Darknet sensor was built from
+    (``{"cfg": path, "weights": path}``)."""
     os.makedirs(path, exist_ok=True)
+    scene_m = {}
+    if scene is not None:
+        scene_m = {"num_classes": scene.num_classes,
+                   "input_size": scene.input_size, "arch": scene.arch}
+        if scene.arch == "darknet":
+            scene_m.update(sections=scene.sections, fm_layer=scene.fm_layer,
+                           meta=scene_meta or {})
     manifest = {
         "format": FORMAT,
         "ctrl_cfg": dataclasses.asdict(ctrl_cfg),
-        "scene": {} if scene is None else {
-            "num_classes": scene.num_classes,
-            "input_size": scene.input_size, "arch": scene.arch},
+        "scene": scene_m,
         "extra": extra or {},
         "has_scene_params": scene is not None,
         "has_wae": wae is not None,
@@ -94,11 +105,18 @@ def load_bundle(path: str, device=None) -> Bundle:
     ctrl.eval()
     scene = None
     if manifest["has_scene_params"]:
-        from paddlerobotics_torch.hri.perception.scene import SceneSensor
+        from paddlerobotics_torch.hri.perception.scene import (
+            DarknetSceneSensor, SceneSensor)
 
         s = manifest["scene"]
-        scene = SceneSensor(s["num_classes"], s["input_size"], s["arch"],
-                            device=device)
+        if s["arch"] == "darknet":
+            sections = tuple((t, tuple(tuple(kv) for kv in opts))
+                             for t, opts in s["sections"])
+            scene = DarknetSceneSensor(sections, s["input_size"],
+                                       s["fm_layer"], device=device)
+        else:
+            scene = SceneSensor(s["num_classes"], s["input_size"], s["arch"],
+                                device=device)
         scene.model.load_state_dict(torch.load(
             os.path.join(path, SCENE_STATE), map_location=device,
             weights_only=True))

@@ -1,6 +1,6 @@
-"""The CSPDarknet53 trunk of YOLOv4 (port of the JAX package's
-``hri/perception/backbones.py``: ``mish``, ``ConvBN``, ``DarkResBlock``,
-``CSPStage``, ``CSPDarknet53``).
+"""The CSPDarknet53 trunk of YOLOv4 and the Darknet53 trunk of YOLOv3 (port
+of the JAX package's ``hri/perception/backbones.py``: ``mish``, ``ConvBN``,
+``DarkResBlock``, ``CSPStage``, ``CSPDarknet53``, ``Darknet53``).
 
 Activations are NCHW inside the port's modules. Submodules carry the flax
 scope names (``ConvBN_0``, ``Conv_0``, ``BatchNorm_0``, ``CSPStage_2`` …),
@@ -111,3 +111,36 @@ class CSPDarknet53(nn.Module):
         c4 = self.CSPStage_3(c3)
         c5 = self.CSPStage_4(c4)
         return c3, c4, c5
+
+
+class Darknet53(nn.Module):
+    """YOLOv3 trunk (leaky-ReLU residual stages); returns (C3 /8, C4 /16,
+    C5 /32). flax builds its stages inline, so the ConvBNs are numbered
+    ``ConvBN_0..ConvBN_51`` in the order they run: the stem, then per stage
+    the stride-2 conv and a 1×1 / 3×3 pair per residual."""
+
+    STAGES = ((64, 1), (128, 2), (256, 8), (512, 8), (1024, 4))
+
+    def __init__(self, device=None):
+        super().__init__()
+        specs = [(3, 32, 3, 1)]
+        cin = 32
+        for feats, n in self.STAGES:
+            specs.append((cin, feats, 3, 2))
+            specs += [(feats, feats // 2, 1, 1), (feats // 2, feats, 3, 1)] * n
+            cin = feats
+        for i, (ci, f, k, s) in enumerate(specs):
+            setattr(self, f"ConvBN_{i}", ConvBN(ci, f, k, s, device=device))
+
+    def forward(self, x):
+        cb = lambda i, h: getattr(self, f"ConvBN_{i}")(h)
+        h = cb(0, x)
+        i, feats = 1, []
+        for _, n in self.STAGES:
+            h = cb(i, h)
+            i += 1
+            for _ in range(n):
+                h = h + cb(i + 1, cb(i, h))
+                i += 2
+            feats.append(h)
+        return feats[2], feats[3], feats[4]

@@ -1,7 +1,7 @@
-"""YOLOv4 with fixed-shape decode and NMS (port of the JAX package's
-``hri/perception/yolo.py``: ``SPP``, ``YOLOv4Neck``, ``YOLOHead``,
-``YOLOv4``, the anchors, ``decode_predictions``, ``nms_topk``,
-``_iou_one``).
+"""YOLOv4 and YOLOv3 with fixed-shape decode and NMS (port of the JAX
+package's ``hri/perception/yolo.py``: ``SPP``, ``YOLOv4Neck``, ``YOLOHead``,
+``YOLOv4``, ``YOLOv3``, the anchors, ``decode_predictions``, ``nms_topk``,
+``nms_topk_multiclass``, ``_iou_one``).
 
 The network runs NCHW; ``YOLOv4.forward`` returns the head outputs and the
 stride-32 feature map NHWC, the JAX package's layout, so decode, NMS and
@@ -24,13 +24,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from paddlerobotics_torch.hri.perception.backbones import (ConvBN,
-                                                           CSPDarknet53)
+                                                           CSPDarknet53,
+                                                           Darknet53)
 
-# COCO anchors (yolov4.cfg), per scale small→large
+# COCO anchors (yolov4.cfg / ppdet yolov3 defaults), per scale small→large
 YOLOV4_ANCHORS = (
     ((12, 16), (19, 36), (40, 28)),
     ((36, 75), (76, 55), (72, 146)),
     ((142, 110), (192, 243), (459, 401)),
+)
+YOLOV3_ANCHORS = (
+    ((10, 13), (16, 30), (33, 23)),
+    ((30, 61), (62, 45), (59, 119)),
+    ((116, 90), (156, 198), (373, 326)),
 )
 
 
@@ -129,6 +135,41 @@ class YOLOv4(nn.Module):
         return [nhwc(p) for p in preds], nhwc(h5)
 
 
+# (cin, features, kernel, stride) of YOLOv3's own ConvBN_0..ConvBN_16 in
+# flax's order: conv5 on C5, the 1×1 before the first upsample, conv5 on
+# [up4, C4], the 1×1 before the second, conv5 on [up3, C3]
+_V3_NECK = (_conv5_specs(1024, 512) + [(512, 256, 1, 1)]
+            + _conv5_specs(768, 256) + [(256, 128, 1, 1)]
+            + _conv5_specs(384, 128))
+
+
+class YOLOv3(nn.Module):
+    """Darknet53 + FPN-style neck + heads; ``forward`` as ``YOLOv4``'s."""
+
+    def __init__(self, num_classes: int = 80, device=None):
+        super().__init__()
+        self.Darknet53_0 = Darknet53(device=device)
+        for i, (cin, f, k, s) in enumerate(_V3_NECK):
+            setattr(self, f"ConvBN_{i}", ConvBN(cin, f, k, s, device=device))
+        self.YOLOHead_0 = YOLOHead(num_classes, device=device)
+
+    def _conv5(self, i0, x):
+        for i in range(i0, i0 + 5):
+            x = getattr(self, f"ConvBN_{i}")(x)
+        return x
+
+    def forward(self, img):
+        c3, c4, c5 = self.Darknet53_0(img)
+        h5 = self._conv5(0, c5)
+        up4 = _upsample(self.ConvBN_5(h5))
+        h4 = self._conv5(6, torch.cat([up4, c4], dim=1))
+        up3 = _upsample(self.ConvBN_11(h4))
+        h3 = self._conv5(12, torch.cat([up3, c3], dim=1))
+        preds = self.YOLOHead_0([h3, h4, h5])
+        nhwc = lambda t: t.permute(0, 2, 3, 1)
+        return [nhwc(p) for p in preds], nhwc(h5)
+
+
 def decode_predictions(preds: Sequence[torch.Tensor], anchors,
                        num_classes: int, input_size: int = 416,
                        scale_xy: float = 1.0):
@@ -204,6 +245,31 @@ def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, max_dets: int = 20,
     if return_indices:
         return keep_boxes, keep_scores, valid, keep_idx
     return keep_boxes, keep_scores, valid
+
+
+def nms_topk_multiclass(boxes: torch.Tensor, scores: torch.Tensor,
+                        max_dets: int = 20, iou_threshold: float = 0.45,
+                        score_threshold: float = 0.25):
+    """Per-class NMS: suppression only within a class, by translating each
+    class's boxes to a disjoint region and running one agnostic pass.
+
+    boxes (N,4), scores (N,C) → (boxes (K,4), scores (K,), class_ids (K,),
+    valid (K,))."""
+    N, C = scores.shape
+    lo = torch.min(boxes)
+    b0 = boxes - lo                                       # coords ≥ 0
+    span = torch.max(b0) + 1.0
+    flat_scores = scores.reshape(-1)                      # (N*C,)
+    cls_ids = torch.arange(C, device=boxes.device).repeat(N)
+    box_rep = torch.repeat_interleave(b0, C, dim=0)       # (N*C,4)
+    offset = (cls_ids.to(boxes.dtype) * span)[:, None]
+    kept_b, kept_s, valid = nms_topk(box_rep + offset, flat_scores,
+                                     max_dets, iou_threshold, score_threshold)
+    kc = torch.clamp(torch.floor(kept_b[:, 0] / span), 0, C - 1).to(
+        torch.int32)
+    kc = torch.where(valid, kc, 0)
+    kept_b = kept_b - (kc.to(boxes.dtype) * span)[:, None] + lo
+    return kept_b, kept_s, kc, valid
 
 
 def _iou_one(box, boxes):

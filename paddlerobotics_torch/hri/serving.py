@@ -80,15 +80,15 @@ class ProactiveGreetingService:
 
     # -- per-frame processing -------------------------------------------------
 
-    def process_frame(self, image: np.ndarray,
-                      timestamp: Optional[float] = None) -> dict:
-        """image (S,S,3) in [0,1] → decision dict (JSON-able)."""
+    def process_frame(self, image, timestamp: Optional[float] = None) -> dict:
+        """image (S,S,3) in [0,1], an array or a tensor → decision dict
+        (JSON-able)."""
         now = time.time()
         timestamp = timestamp if timestamp is not None else now
         if (now - timestamp) * 1000.0 > self.cfg.lag_skip_ms:
             return {"triggered": False, "reason": "lag_skip"}
 
-        img = torch.as_tensor(np.asarray(image, np.float32),
+        img = torch.as_tensor(image, dtype=torch.float32,
                               device=self.device)[None]
         inst = self._detect(img)
         self.frame_counter += 1

@@ -431,9 +431,12 @@ def test_export_bundle_serves_like_the_trained_module(tmp_path):
         decisions.append([svc.process_frame(f) for f in frames])
     assert decisions[0] == decisions[1]
     assert sum("trigger_score" in d for d in decisions[0]) == 3
-    with pytest.raises(SystemExit, match="Darknet"):
-        export_hri_model.main(["--ckpt", out + "/itr_2.pt", "--out", bundle,
-                               "--darknet_cfg", "yolov4.cfg"])
+    # --darknet_cfg adds a cfg-built scene sensor (test_torch_darknet.py
+    # holds its detections against JAX's); a cfg that is not there raises
+    with pytest.raises(FileNotFoundError):
+        export_hri_model.main(WIDTHS + [
+            "--ckpt", out + "/itr_2.pt", "--out", bundle, "--darknet_cfg",
+            str(tmp_path / "no.cfg")])
 
 
 def test_bundle_keeps_the_scene_sensor(tmp_path):

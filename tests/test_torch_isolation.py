@@ -17,19 +17,25 @@ from paddlerobotics_torch.algos import es, replay
 from paddlerobotics_torch.algos.bc import BC
 from paddlerobotics_torch.algos.networks import Actor
 from paddlerobotics_torch.algos.sac import SAC
-from paddlerobotics_torch.cli import (bc_train, dynamics_id, eval_matrix,
-                                      export_gait, parallel_train_attn,
-                                      pretrain_etg, train_attention,
+from paddlerobotics_torch.cli import (bc_train, collect_data, dynamics_id,
+                                      eval_matrix, export_gait,
+                                      parallel_train_attn, pretrain_etg,
+                                      serve_grpc, train_attention,
                                       train_bench)
 from paddlerobotics_torch.core.config import ESConfig, QuadrupedConfig
 from paddlerobotics_torch.deploy import (bezier, estimator, policy_export,
                                          realtime)
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
 from paddlerobotics_torch.etg import fit
-from paddlerobotics_torch.hri import export, synthetic_scene
+from paddlerobotics_torch.hri import export, synthetic_scene, tracker
+from paddlerobotics_torch.hri import grpc_transport as gt
+from paddlerobotics_torch.hri import pg_proto as pb
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig)
-from paddlerobotics_torch.hri.perception.scene import SceneSensor
+from paddlerobotics_torch.hri.perception import darknet
+from paddlerobotics_torch.hri.perception.reid import MarsSmall128
+from paddlerobotics_torch.hri.perception.scene import (DarknetSceneSensor,
+                                                       SceneSensor)
 from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
                                               ServiceConfig)
 from paddlerobotics_torch.hri.train_attention import (AttentionTrainer,
@@ -107,6 +113,35 @@ def _bundle(**kw):
     return export.load_bundle(_BUNDLE, **kw).ctrl
 
 
+_TINY_CFG = """
+[net]
+width=16
+
+[convolutional]
+filters=14
+size=1
+pad=1
+
+[yolo]
+mask=0,1
+anchors=10,13, 16,30
+classes=2
+"""
+
+
+def _handler_frame(make, **kw):
+    """The frame a transport-free handler hands its decision function."""
+    seen = []
+    handle = make(lambda *a: seen.append(a) or {"ok": True}, device=kw.get(
+        "device"))
+    frame = np.zeros((416, 416, 3), np.float32).tobytes()
+    if make is gt.greeting_handler:
+        handle(pb.VideoRequest(cur_frame=frame).encode())
+        return seen[0][0]
+    handle(pb.EvalRequest(nframe=1, frames=frame).encode())
+    return seen[0][0][0]
+
+
 _ENTRY_POINTS = {
     "Actor": lambda **kw: Actor(49, 12, 8, **kw),
     "actor_from_flax": lambda **kw: convert.actor_from_flax(
@@ -164,6 +199,15 @@ _ENTRY_POINTS = {
     "device_prototypes": lambda **kw: synthetic_scene.device_prototypes(
         _SMALL_CTRL, **kw)["person"],
     "load_bundle": _bundle,
+    "SceneSensor_yolov3": lambda **kw: SceneSensor(input_size=32,
+                                                   arch="yolov3", **kw),
+    "DarknetSceneSensor": lambda **kw: DarknetSceneSensor(
+        darknet.parse_cfg(_TINY_CFG), **kw),
+    "MarsSmall128": lambda **kw: MarsSmall128(**kw),
+    "init_tracker": lambda **kw: tracker.init_tracker(**kw).mean,
+    "greeting_handler": lambda **kw: _handler_frame(gt.greeting_handler,
+                                                    **kw),
+    "eval_handler": lambda **kw: _handler_frame(gt.eval_handler, **kw),
 }
 
 
@@ -200,13 +244,16 @@ def _cli_argvs(tmp: pathlib.Path) -> dict:
             "--synthetic", "1", "--epochs", "1", "--outdir", str(tmp)]),
         "parallel_train_attn": (parallel_train_attn.main, [
             "--synthetic", "1", "--epochs", "1", "--outdir", str(tmp)]),
+        "serve_grpc": (serve_grpc.main, ["--smoke", "--steps", "1"]),
+        "collect_data": (collect_data.main, ["-d", str(tmp)]),
     }
 
 
 @pytest.mark.parametrize("name", ["pretrain_etg", "eval_matrix", "bc_train",
                                   "dynamics_id", "export_gait",
                                   "train_bench", "train_attention",
-                                  "parallel_train_attn"])
+                                  "parallel_train_attn", "serve_grpc",
+                                  "collect_data"])
 def test_cli_without_device_needs_a_card(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
