@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Builds the three hand-written kernels from the checkout (in parallel) and
-holds each against its plain PyTorch version on the card. Drives the two paths
+Builds the three hand-written kernels and the native serving runtime from
+the checkout (in parallel) and holds each kernel against its plain PyTorch
+version on the card. Drives the two paths
 of the port through their entry points, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -46,7 +47,22 @@ to 0 just before it and read just after:
   plain matching, and ``cli.serve_grpc``'s transport-free handlers on 20
   uint8 BGR ``VideoRequest`` messages and one 10-frame ``EvalRequest``
   (6 attention launches per decided frame), against the service on the
-  same frames letterboxed by ``hri/utils``.
+  same frames letterboxed by ``hri/utils``;
+- the native C++ serving runtime (``runtime_cpp/``, built with g++ beside
+  the kernels): ``hri.native_pipeline.NativeEvalServer`` with the port's
+  YOLOv4 + 317-action callbacks on 10-frame requests (6 attention launches
+  per request) against the same windows through the controller in
+  process, the ``stream_sync`` and ``stream_pipelined`` arms of
+  ``cli.serving_bench`` (6 launches per decided frame), and
+  ``NativeClipEvalServer`` with R(2+1)D-18 on 8 × 3 × 224² clips against
+  a direct model call on the clip C++ preprocessed; every native handle's
+  ``check()`` raises what a callback raised;
+- the A1 UDP bridge: ``deploy.udp_bridge.A1EmulatorServer`` +
+  ``A1UdpClient`` + ``cli.robot_exercise.run_exercise`` over 300 commands
+  (one physics launch per non-zero command, at B=1), the first 20 again
+  through the plain physics, state packets bit-equal; MobileNetV2 and
+  ResNet at 224² on the card against the CPU; the re-ID encoder through a
+  frozen graph (``tf_graph``, ``reid.import_tf_consts``), 0.0 apart.
 
 Times each kernel by CUDA events and by its device time under
 ``torch.profiler``, beside its bounds, its launch plan, its plain version
@@ -171,6 +187,16 @@ TRACK_PLAIN_FRAMES = 30
 TRACK_HW = (360, 640)                   # the reference's view frames
 GRPC_FRAMES = 20                        # VideoRequests, 11 of them decided
 GRPC_EVAL_FRAMES = 10                   # one EvalRequest, its last decided
+NATIVE_EVAL_FRAMES = 10                 # frames of one native EvalRequest
+NATIVE_EVAL_REQUESTS = 5
+NATIVE_TOL = 1e-6                       # native eval vs the controller here
+NATIVE_STREAM_FRAMES = 30               # timed frames of each stream arm
+CLIP_REQUESTS = 5                       # R(2+1)D clips through C++
+CLIP_TOL = 1e-5                         # clip scores vs a direct model call
+UDP_BLEND = 100                         # run_exercise: blend commands
+UDP_STEPS = 200                         # then the hip sinusoid
+UDP_VS_PLAIN = 20                       # commands again, plain physics
+BACKBONE_RTOL = 1e-4                    # card vs CPU, of the output's scale
 # a Darknet cfg at 416² with every section type the importer reads: strided
 # and grouped convolutions, both max pools, a shortcut, an upsample, routes
 # with groups and two sources, two [yolo] heads (13² and 52²) with their
@@ -373,6 +399,7 @@ def main() -> int:
     from paddlerobotics_torch.etg import fit
     from paddlerobotics_torch.algos.networks import Actor
     from paddlerobotics_torch.ops import attention, lap, physics_step
+    from paddlerobotics_torch.ops.build import build_native_runtime
     from paddlerobotics_torch.sim import sbatch, terrain
     from paddlerobotics_torch.train import etg_rl
     from paddlerobotics_torch.utils import profiler
@@ -387,10 +414,12 @@ def main() -> int:
 
     # --- build: one nvcc per source, started together --------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
+        native = ex.submit(build_native_runtime)
         for f in [ex.submit(physics_step.build), ex.submit(attention.build),
                   ex.submit(lap.build)]:
             f.result()
+        lib, native_info = native.result()
     for name, info in (("physics_step", physics_step.build_info),
                        ("attention", attention.build_info),
                        ("track_match", lap.build_info)):
@@ -399,6 +428,8 @@ def main() -> int:
             ptxas=json.dumps(regs, sort_keys=True))
         if not info["ptxas"]:
             raise RuntimeError(f"no -Xptxas -v report for {name}")
+    log("native_build", seconds=round(native_info["seconds"], 1),
+        compiler=repr(native_info["compiler"]), path=native_info["path"])
     log("build", wall_seconds=round(time.perf_counter() - t0, 1))
 
     # --- kernel against plain ------------------------------------------------
@@ -723,6 +754,8 @@ def main() -> int:
     del scene
     track_entry, track_launches = hri_track_phases(dev, card)
     attn_entry.update(track_launches)
+    attn_entry.update(native_phases(dev, card, lib))
+    kernels[0]["udp_bridge_launches"] = robot_io_phases(dev, card)
     kernels += [attn_entry, track_entry]
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -2410,6 +2443,327 @@ def hri_track_phases(dev, card) -> dict:
     return entry, {"yolov3_launches": v3_launches,
                    "serve_grpc_launches": grpc_launches,
                    "serve_grpc_eval_launches": eval_launches}
+
+
+def native_phases(dev, card, lib: str) -> dict:
+    """The native C++ serving runtime with the port's models on the card:
+    ``NativeEvalServer`` on 10-frame requests against the same windows
+    through the controller in process (``[native_eval]``), the
+    ``stream_sync`` and ``stream_pipelined`` arms of ``cli.serving_bench``
+    (``[native_stream]``), and ``NativeClipEvalServer`` with R(2+1)D-18
+    against a direct model call on the clip C++ preprocessed
+    (``[clip_eval]``). Each phase ends with the handle's ``check()``, which
+    raises what a callback raised. Returns the attention launches."""
+    from paddlerobotics_torch.cli import serving_bench
+    from paddlerobotics_torch.hri.attention_ctrl import top_k_sampling
+    from paddlerobotics_torch.hri.native_pipeline import (
+        CLIP_LEN, CLIP_RES, NativeClipEvalServer, NativeEvalServer, overlap)
+    from paddlerobotics_torch.hri.r2plus1d import R2Plus1D18
+    from paddlerobotics_torch.hri.r2plus1d_train import (ClipScorer,
+                                                         make_inference_fn)
+    from paddlerobotics_torch.hri.stream_client import EvalStreamClient
+    from paddlerobotics_torch.ops import attention
+    from paddlerobotics_torch.utils import profiler
+
+    num_act = 317
+    svc, cbs = serving_bench.build_models(num_act, device=dev, seed=4)
+    scene, ctrl = svc.scene, svc.ctrl
+    rng = np.random.default_rng(4)
+    frames = [rng.random((SIZE, SIZE, 3), dtype=np.float32)
+              for _ in range(NATIVE_EVAL_FRAMES)]
+    for f in frames + frames[:2]:                     # warm-up, window full
+        svc.process_frame(f)
+    cbs.detect(frames[0])
+
+    # --- [native_eval]: the unary eval server against the controller ----------
+    server = NativeEvalServer(cbs.detect, cbs.attend, num_act=num_act,
+                              trigger_threshold=0.0, near_field_frac=0.0,
+                              lib_path=lib)
+    client = EvalStreamClient(port=server.port)
+    fids = torch.arange(1, 11, device=dev).repeat_interleave(20)[None]
+    worst, launches, lat, same_ids, triggered = 0.0, [], [], True, 0
+    try:
+        for r in range(NATIVE_EVAL_REQUESTS):
+            req = frames[r:] + frames[:r]
+            state = cbs.generator.get_state()
+            attention.flash_attention.launches = 0
+            t = time.perf_counter()
+            out = client.infer(req)
+            lat.append(1e3 * (time.perf_counter() - t))
+            launches.append(attention.flash_attention.launches)
+            got_acts = cbs.last["act_scores"]
+            # the same window through the sensor and the controller here
+            with torch.no_grad():
+                inst = [scene.get_instances_with_feats(torch.as_tensor(
+                    f, device=dev)[None]) for f in req]
+                tok = torch.cat([i.tokens for i in inst]).reshape(1, 200, -1)
+                pad = torch.cat([i.valid for i in inst]).reshape(
+                    1, 200).to(torch.float32)
+                o = ctrl({"visual_tokens": tok}, fids, pad, use_kernel=True)
+                logits = o["act_logits"][:, -1:, :]
+                g = torch.Generator(dev)
+                g.set_state(state)
+                ref_id = int(top_k_sampling(logits, 1.0, 5, generator=g)[0, 0])
+                ref_trig = float(torch.sigmoid(o["trigger_logits"][0, -1]))
+                ref_acts = torch.softmax(logits[0, 0], -1).cpu().numpy()
+            # with no valid detection in the last frame C++ answers
+            # no_target, and the response score stays 0
+            resp = out["response"]
+            want = ref_acts[ref_id] if resp["triggered"] else 0.0
+            same_ids &= (resp.get("action_id", ref_id) == ref_id and
+                         out["nullact_id"] == int(ref_acts.argmax()))
+            triggered += bool(resp["triggered"])
+            worst = max(worst, abs(out["trigger_pred"] - ref_trig),
+                        abs(out["nullact_score"] - ref_acts[0]),
+                        abs(out["response_score"] - want),
+                        float(np.abs(got_acts - ref_acts).max()))
+        server.check()
+    finally:
+        client.close()
+        server.close()
+    ok = (worst <= NATIVE_TOL and same_ids and
+          launches == [6] * NATIVE_EVAL_REQUESTS)
+    log("native_eval", requests=NATIVE_EVAL_REQUESTS,
+        frames=NATIVE_EVAL_FRAMES, num_act=num_act,
+        max_abs_diff=worst, tol=NATIVE_TOL, ids_equal=same_ids,
+        triggered=triggered, launches=json.dumps(launches),
+        ms_per_request=round(float(np.mean(lat)), 3),
+        ms_p50=round(float(np.percentile(lat, 50)), 3),
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the native eval server disagrees with the "
+                           "controller in process, or launched wrongly")
+    eval_launches = sum(launches)
+
+    # --- [native_stream]: the serving bench's two stream arms -----------------
+    pace_s = 1.5 * serving_bench.arm_model_sync(
+        svc, frames, 12)["p50_ms"] / 1e3 + 0.05
+    stream_launches, ok = {}, True
+    for pipelined in (False, True):
+        attention.flash_attention.launches = 0
+        row = serving_bench.arm_stream(cbs, frames, NATIVE_STREAM_FRAMES,
+                                       pipelined=pipelined, pace_s=pace_s,
+                                       lib_path=lib)
+        n_launch = attention.flash_attention.launches
+        stream_launches[row["arm"]] = n_launch
+        good = (n_launch == 6 * row["attend_calls"] and row["decisions"] > 0
+                and row["attend_calls"] >= row["decisions"])
+        ok &= good
+        log("native_stream", arm=row["arm"], frames=NATIVE_STREAM_FRAMES,
+            frames_per_s=round(row["fps"], 3),
+            p50_ms=round(row["p50_ms"], 3), p99_ms=round(row["p99_ms"], 3),
+            decisions=row["decisions"], dropped=row["dropped"],
+            detect_calls=row["detect_calls"],
+            attend_calls=row["attend_calls"], launches=n_launch,
+            overlap_s=round(row["overlap_s"], 4),
+            detect_s=round(row["detect_s"], 4),
+            attend_s=round(row["attend_s"], 4),
+            overlap_share_of_attend=round(
+                row["overlap_s"] / max(row["attend_s"], 1e-9), 4),
+            pace_s=round(pace_s, 4), result="pass" if good else "FAIL",
+            card=repr(card))
+    if not ok:
+        raise RuntimeError("a stream arm's attention launches are not 6 per "
+                           "decided frame")
+    del svc, cbs, scene, ctrl
+
+    # --- [clip_eval]: R(2+1)D-18 behind the native clip server ----------------
+    g = torch.Generator(dev)
+    g.manual_seed(5)
+    model = R2Plus1D18(num_act, device=dev, generator=g).eval()
+    scorer = ClipScorer(model, generator=torch.Generator(dev).manual_seed(6))
+    seen = []
+
+    def score(clip):
+        out = scorer(clip)
+        seen.append((clip, out[0]))
+        return out
+
+    scorer(np.zeros((CLIP_LEN, 3, CLIP_RES, CLIP_RES), np.float32))  # warm
+    server = NativeClipEvalServer(score, num_act, lib_path=lib)
+    client = EvalStreamClient(port=server.port)
+    infer = make_inference_fn(model)
+    worst, lat = 0.0, []
+    try:
+        for r in range(CLIP_REQUESTS):
+            t = time.perf_counter()
+            out = client.infer(frames[r:] + frames[:r])
+            lat.append(1e3 * (time.perf_counter() - t))
+            clip, probs = seen[-1]
+            x = torch.as_tensor(clip, device=dev).permute(1, 0, 2, 3)[None]
+            ref = infer(x, 1.0, 5, noise=torch.zeros(1, num_act,
+                                                      device=dev))[0]
+            ref = ref[0].cpu().numpy()
+            worst = max(worst, float(np.abs(probs - ref).max()),
+                        abs(out["nullact_score"] - ref[0]))
+            if out["nullact_id"] != int(ref.argmax()):
+                worst = float("inf")
+        server.check()
+    finally:
+        client.close()
+        server.close()
+    prof = profiler.device_breakdown(torch.no_grad()(lambda: model(x)),
+                                     reps=5)
+    ok = worst <= CLIP_TOL and len(seen) == CLIP_REQUESTS
+    log("clip_eval", model="r2plus1d_18", clip=json.dumps(list(x.shape)),
+        num_act=num_act, requests=CLIP_REQUESTS, max_abs_diff=worst,
+        tol=CLIP_TOL, ms_per_clip=round(float(np.mean(lat)), 3),
+        ms_p50=round(float(np.percentile(lat, 50)), 3),
+        device_ms=round(prof["device_ms_per_call"], 4),
+        kernels=prof["kernels_per_call"], top=json.dumps(prof["top"][:3]),
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the native clip server's scores disagree with "
+                           "a direct model call on its clip")
+    return {"native_eval_launches": eval_launches,
+            **{f"native_{k}_launches": v for k, v in stream_launches.items()}}
+
+
+def robot_io_phases(dev, card) -> int:
+    """The A1 UDP bridge on the card: ``A1EmulatorServer`` + ``A1UdpClient``
+    + ``cli.robot_exercise.run_exercise`` (``[udp_bridge]``, one physics
+    launch per non-zero command), the first commands again through the
+    plain physics (``[udp_vs_plain]``, state packets bit-equal); then the
+    HRI backbones (``[backbones]``) and the re-ID frozen-graph round trip
+    (``[tf_import]``). Returns the physics launches of ``[udp_bridge]``."""
+    import copy
+
+    from paddlerobotics_torch.cli.robot_exercise import run_exercise
+    from paddlerobotics_torch.deploy.udp_bridge import (A1EmulatorServer,
+                                                        A1UdpClient)
+    from paddlerobotics_torch.hri.perception import reid, tf_graph
+    from paddlerobotics_torch.hri.perception.backbones import (MobileNetV2,
+                                                               ResNet)
+    from paddlerobotics_torch.ops import physics_step
+    from paddlerobotics_torch.utils import profiler
+
+    def recording(client, log_):
+        send = client.send_command
+
+        def rec(cmd):
+            t = time.perf_counter()
+            st = send(cmd)
+            log_.append((np.array(cmd), st, time.perf_counter() - t))
+            return st
+
+        client.send_command = rec
+        return client
+
+    # --- [udp_bridge] -----------------------------------------------------------
+    server = A1EmulatorServer(device=dev)
+    sent = []
+    client = recording(A1UdpClient(server.addr, timeout=30.0, device=dev),
+                       sent)
+    physics_step.control_step.launches = 0
+    t = time.perf_counter()
+    try:
+        rec = run_exercise(client, steps=UDP_STEPS, blend_steps=UDP_BLEND)
+        wall = time.perf_counter() - t
+        launches = physics_step.control_step.launches
+        server.check()
+    finally:
+        client.close()
+        server.close()
+    nonzero = sum(bool(np.any(c != 0)) for c, _, _ in sent)
+    rtt = 1e3 * np.asarray([s for _, _, s in sent])
+    q = np.asarray(rec.rows["motor_angle"])
+    rpy = np.asarray(rec.rows["rpy"])
+    upright = bool(np.abs(rpy[:, :2]).max() < 0.35 and np.isfinite(q).all())
+    ok = launches == nonzero == UDP_STEPS + UDP_BLEND and upright
+    log("udp_bridge", commands=len(sent), nonzero_commands=nonzero,
+        launches=launches, ms_per_round_trip=round(float(rtt.mean()), 4),
+        p50_ms=round(float(np.percentile(rtt, 50)), 4),
+        p99_ms=round(float(np.percentile(rtt, 99)), 4), tick_ms=26.0,
+        seconds=round(wall, 3),
+        hip_range=round(float(q[:, 1].max() - q[:, 1].min()), 4),
+        max_abs_roll_pitch=round(float(np.abs(rpy[:, :2]).max()), 4),
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the UDP bridge launched the physics other than "
+                           "once per non-zero command, or the robot fell")
+
+    # --- [udp_vs_plain]: the first commands through the plain physics -----------
+    with plain_physics():
+        server = A1EmulatorServer(device=dev)
+        replay = []
+        client = recording(A1UdpClient(server.addr, timeout=60.0,
+                                       device=dev), replay)
+        try:
+            for cmd, _, _ in sent[:UDP_VS_PLAIN]:
+                client.send_command(cmd)
+            server.check()
+        finally:
+            client.close()
+            server.close()
+    diff = 0.0
+    for (_, a, _), (_, b, _) in zip(sent, replay):
+        for k, v in a.items():
+            diff = max(diff, float(np.abs(np.asarray(v, np.float64)
+                                          - np.asarray(b[k])).max()))
+    ok = diff == 0.0 and len(replay) == UDP_VS_PLAIN
+    log("udp_vs_plain", commands=len(replay), max_abs_diff=diff,
+        plain_ms_per_round_trip=round(1e3 * float(np.mean(
+            [s for _, _, s in replay])), 3),
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the UDP bridge's states through the kernel and "
+                           "through the plain physics differ")
+
+    # --- [backbones]: MobileNetV2 and ResNet at 224² ------------------------------
+    g = torch.Generator(dev)
+    g.manual_seed(7)
+    x = torch.rand(2, 3, 224, 224, generator=g, device=dev)
+    for name, net in (("mobilenet_v2", MobileNetV2(device=dev, generator=g)),
+                      ("resnet50", ResNet(device=dev, generator=g))):
+        with torch.no_grad():
+            out = net(x)
+            out = out if isinstance(out, tuple) else (out,)
+            cpu = copy.deepcopy(net).cpu()(x.cpu())
+            cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                  for a, b in zip(out, cpu))
+        prof = profiler.device_breakdown(torch.no_grad()(lambda: net(x)),
+                                         reps=5)
+        ok = rel <= BACKBONE_RTOL and all(bool(torch.isfinite(a).all())
+                                          for a in out)
+        log("backbones", net=name, batch=2, hw=224,
+            out=json.dumps([list(a.shape) for a in out]),
+            max_abs_diff_of_scale=rel, tol=BACKBONE_RTOL,
+            device_ms=round(prof["device_ms_per_call"], 4),
+            kernels=prof["kernels_per_call"],
+            result="pass" if ok else "FAIL", card=repr(card))
+        if not ok:
+            raise RuntimeError(f"{name} on the card disagrees with the CPU")
+
+    # --- [tf_import]: the re-ID encoder through a frozen graph ----------------------
+    enc = reid.MarsSmall128(device=dev, generator=g)
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                n = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g,
+                                                       device=dev))
+                m.running_var.copy_(0.8 + 0.4 * torch.rand(n, generator=g,
+                                                           device=dev))
+    t = time.perf_counter()
+    blob = tf_graph.encode_const_graph(reid.export_tf_consts(enc))
+    consts = tf_graph.parse_graph_consts(blob)
+    imported = reid.import_tf_consts(consts, device=dev)
+    secs = time.perf_counter() - t
+    crops = torch.rand(20, 128, 64, 3, generator=g, device=dev)
+    with torch.no_grad():
+        a, b = imported(crops), enc(crops)
+    diff = float((a - b).abs().max())
+    spread = float((b[0] - b[1]).abs().max())
+    ok = diff == 0.0 and spread > 1e-3
+    log("tf_import", consts=len(consts), graph_bytes=len(blob),
+        crops=20, max_abs_diff=diff, features_spread=round(spread, 4),
+        seconds=round(secs, 3), result="pass" if ok else "FAIL",
+        card=repr(card))
+    if not ok:
+        raise RuntimeError("the re-ID encoder through the frozen graph "
+                           "differs from the encoder")
+    return launches
 
 
 def count_ops_per_env(sim, h_fn) -> float:

@@ -3,8 +3,10 @@
 Takes plain numpy arrays (the caller does ``np.asarray`` on the JAX side)
 and builds the port's modules and state types; imports nothing of JAX.
 Modules whose submodules carry flax's scope names (the HRI controller,
-YOLOv4 and YOLOv3, the Darknet network, the re-ID encoder) load a flax
-variable tree by path with ``load_flax``.
+YOLOv4 and YOLOv3, the Darknet network, the re-ID encoder, MobileNetV2 and
+ResNet) load a flax variable tree by path with ``load_flax``; R(2+1)D keeps
+torchvision's names and maps flax's scopes onto them
+(``r2plus1d.flax_names``).
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ from paddlerobotics_torch.core.config import SACConfig
 from paddlerobotics_torch.core.device import resolve_device
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig)
+from paddlerobotics_torch.hri.perception.backbones import MobileNetV2, ResNet
 from paddlerobotics_torch.hri.perception.reid import MarsSmall128
 from paddlerobotics_torch.hri.perception.scene import (DarknetSceneSensor,
                                                        SceneSensor)
+from paddlerobotics_torch.hri.r2plus1d import (R2PLUS1D18_BLOCKS, R2Plus1D18,
+                                               flax_names)
 from paddlerobotics_torch.hri.train_attention import (AttentionTrainer,
                                                       AttnTrainState)
 from paddlerobotics_torch.sim.sbatch import (BContact, BDynParams, BQuadState,
@@ -96,9 +101,10 @@ def load_flax(module: torch.nn.Module, variables: Mapping) -> None:
     """Copy a flax variable tree (``params`` and ``batch_stats``, numpy
     arrays) into ``module``, whose submodule paths are the flax scopes.
 
-    Dense kernels (in, out) become ``weight`` (out, in); Conv kernels HWIO
-    become OIHW; ``scale`` → ``weight``; BatchNorm ``mean`` / ``var`` →
-    ``running_mean`` / ``running_var``; any other leaf is a raw parameter
+    Dense kernels (in, out) become ``weight`` (out, in); Conv kernels
+    (spatial…, in, out) become (out, in, spatial…), HWIO → OIHW; ``scale``
+    → ``weight``; BatchNorm ``mean`` / ``var`` → ``running_mean`` /
+    ``running_var``; any other leaf is a raw parameter
     of the same name. Every parameter and running statistic of ``module``
     must be set exactly once, with matching shapes."""
     params = variables.get("params", variables)
@@ -115,7 +121,8 @@ def load_flax(module: torch.nn.Module, variables: Mapping) -> None:
             arr = np.asarray(arr, np.float32)
             leaf = path[-1]
             if leaf == "kernel":
-                arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+                nd = arr.ndim
+                arr = arr.transpose(nd - 1, nd - 2, *range(nd - 2))
             name = ".".join(path[:-1] + (leaf_name.get(leaf, leaf),))
             if name not in targets or name in done:
                 raise KeyError(f"flax variable {'/'.join(path)} has no "
@@ -190,6 +197,50 @@ def reid_from_flax(variables_np: Mapping,
     reid = MarsSmall128(device=device)
     load_flax(reid, variables_np)
     return reid
+
+
+def mobilenet_from_flax(variables_np: Mapping, width: float = 1.0,
+                        device: str | torch.device | None = None
+                        ) -> MobileNetV2:
+    """Flax ``MobileNetV2`` variables → the port's module, on the card
+    unless ``device`` says otherwise."""
+    net = MobileNetV2(width, device=device)
+    load_flax(net, variables_np)
+    return net
+
+
+def resnet_from_flax(variables_np: Mapping, depths=(3, 4, 6, 3),
+                     device: str | torch.device | None = None) -> ResNet:
+    """Flax ``ResNet`` variables → the port's module, on the card unless
+    ``device`` says otherwise."""
+    net = ResNet(depths, device=device)
+    load_flax(net, variables_np)
+    return net
+
+
+def r2plus1d_from_flax(variables_np: Mapping, num_classes: int,
+                       blocks=R2PLUS1D18_BLOCKS, stem_kernel: int = 7,
+                       device: str | torch.device | None = None
+                       ) -> R2Plus1D18:
+    """Flax ``R2Plus1D18`` variables (``params`` and ``batch_stats``) → the
+    port's model under torchvision's names, on the card unless ``device``
+    says otherwise; Conv3d kernels (t, h, w, in, out) become (out, in, t,
+    h, w)."""
+    model = R2Plus1D18(num_classes, blocks, stem_kernel, device=device)
+    names = flax_names(blocks)
+
+    def rename(tree):
+        out: dict = {}
+        for path, leaf in _flatten(tree).items():
+            node = out
+            for k in names["/".join(path[:-1])].split("."):
+                node = node.setdefault(k, {})
+            node[path[-1]] = leaf
+        return out
+
+    load_flax(model, {"params": rename(variables_np["params"]),
+                      "batch_stats": rename(variables_np["batch_stats"])})
+    return model
 
 
 def critic_from_flax(params_np: Mapping, obs_dim: int, layer_norm: bool = False,

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from paddlerobotics_torch.hri.perception.backbones import mish
+from paddlerobotics_torch.hri.perception.backbones import mish, same_pool_pad
 
 
 def parse_cfg(text: str) -> Tuple[Tuple[str, Tuple[Tuple[str, str], ...]],
@@ -67,15 +67,6 @@ def _get(opts, key, default=None):
 
 def _ints(s: str) -> List[int]:
     return [int(x) for x in s.replace(" ", "").split(",") if x != ""]
-
-
-def _same_pool_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """flax's SAME padding of a max pool: −inf, (total//2, total − total//2)."""
-    pads = []
-    for n in (x.shape[-1], x.shape[-2]):
-        total = max((-(-n // s) - 1) * s + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads, value=float("-inf"))
 
 
 class DarknetNet(nn.Module):
@@ -149,7 +140,7 @@ class DarknetNet(nn.Module):
             elif ltype == "maxpool":
                 size = int(_get(opt, "size", "2"))
                 stride = int(_get(opt, "stride", str(size)))
-                h = F.max_pool2d(_same_pool_pad(h, size, stride), size,
+                h = F.max_pool2d(same_pool_pad(h, size, stride), size,
                                  stride)
             elif ltype == "upsample":
                 s = int(_get(opt, "stride", "2"))

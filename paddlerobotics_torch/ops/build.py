@@ -10,6 +10,10 @@ of every build; its register and spill report is parsed per kernel.
 
 Two kernels built in two threads compile in parallel: ``subprocess.run``
 releases the GIL while ``nvcc`` runs.
+
+``build_native_runtime`` builds the repository's C++ serving runtime
+(``runtime_cpp/``) the same way, with ``g++``, into
+``build/torch_kernels/<key>/libserving_capi.so``.
 """
 
 from __future__ import annotations
@@ -97,3 +101,51 @@ def build_library(name: str, source: pathlib.Path, flags: tuple = (),
     info = dict(seconds=time.perf_counter() - t0, path=str(so),
                 ptxas=parse_ptxas(log), log=log)
     return lib, info
+
+
+RUNTIME_DIR = pathlib.Path(__file__).resolve().parents[2] / "runtime_cpp"
+RUNTIME_SOURCES = ("pipeline", "stream_server", "eval_server", "hpack",
+                   "grpc_server", "capi")
+RUNTIME_FLAGS = ("-std=c++17", "-O2", "-pthread", "-fPIC", "-shared")
+
+
+def cxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the native serving runtime is "
+                           "built from runtime_cpp/ with a C++17 compiler")
+    return found
+
+
+def build_native_runtime() -> tuple[str, dict]:
+    """Compile ``runtime_cpp/src/*.cpp`` (once per hash of the sources, the
+    headers and the flags) into ``libserving_capi.so``, the C ABI that
+    ``hri/native_pipeline`` loads. Returns the library's path and a dict
+    with the build's ``seconds``, ``compiler`` (its version line) and
+    ``path``.
+
+    The library is written under a temporary name and renamed into place,
+    so processes that build at once each load a whole file."""
+    sources = [RUNTIME_DIR / "src" / f"{n}.cpp" for n in RUNTIME_SOURCES]
+    headers = sorted((RUNTIME_DIR / "include").rglob("*.hpp"))
+    h = hashlib.sha256(" ".join(RUNTIME_FLAGS).encode())
+    for f in sources + headers:
+        h.update(f.name.encode() + f.read_bytes())
+    out_dir = BUILD_DIR / h.hexdigest()[:16]
+    so = out_dir / "libserving_capi.so"
+    t0 = time.perf_counter()
+    compiler = cxx()
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"libserving_capi.{os.getpid()}.so"
+        cmd = [compiler, *RUNTIME_FLAGS, "-I", str(RUNTIME_DIR / "include"),
+               "-o", str(tmp), *map(str, sources)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("g++ failed on runtime_cpp:\n"
+                               + res.stdout + res.stderr)
+        os.replace(tmp, so)
+    version = subprocess.run([compiler, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    return str(so), dict(seconds=time.perf_counter() - t0,
+                         compiler=version, path=str(so))

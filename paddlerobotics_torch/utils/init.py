@@ -19,10 +19,11 @@ def randn(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def flax_default_(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-draw every Linear / Conv2d weight of ``module`` in module order."""
+    """Re-draw every Linear / Conv2d / Conv3d weight of ``module`` in module
+    order."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(randn(m.weight.shape, generator)
                                * (1.0 / math.sqrt(fan_in)))

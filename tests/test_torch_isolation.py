@@ -20,11 +20,12 @@ from paddlerobotics_torch.algos.sac import SAC
 from paddlerobotics_torch.cli import (bc_train, collect_data, dynamics_id,
                                       eval_matrix, export_gait,
                                       parallel_train_attn, pretrain_etg,
-                                      serve_grpc, train_attention,
+                                      robot_exercise, serve_grpc,
+                                      serving_bench, train_attention,
                                       train_bench)
 from paddlerobotics_torch.core.config import ESConfig, QuadrupedConfig
 from paddlerobotics_torch.deploy import (bezier, estimator, policy_export,
-                                         realtime)
+                                         realtime, udp_bridge)
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
 from paddlerobotics_torch.etg import fit
 from paddlerobotics_torch.hri import export, synthetic_scene, tracker
@@ -32,12 +33,16 @@ from paddlerobotics_torch.hri import grpc_transport as gt
 from paddlerobotics_torch.hri import pg_proto as pb
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig)
-from paddlerobotics_torch.hri.perception import darknet
+from paddlerobotics_torch.hri.native_pipeline import ServiceCallbacks
+from paddlerobotics_torch.hri.perception import darknet, reid
+from paddlerobotics_torch.hri.perception.backbones import MobileNetV2, ResNet
 from paddlerobotics_torch.hri.perception.reid import MarsSmall128
 from paddlerobotics_torch.hri.perception.scene import (DarknetSceneSensor,
                                                        SceneSensor)
 from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
                                               ServiceConfig)
+from paddlerobotics_torch.hri.r2plus1d import R2Plus1D18
+from paddlerobotics_torch.hri.r2plus1d_train import R2Plus1DTrainer
 from paddlerobotics_torch.hri.train_attention import (AttentionTrainer,
                                                       synthetic_batch)
 from paddlerobotics_torch.sim import sbatch
@@ -70,7 +75,7 @@ def test_port_imports_no_jax():
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 76, out.stdout
+    assert int(n) >= 94, out.stdout
     assert bad == "[]", out.stdout
 
 
@@ -142,6 +147,26 @@ def _handler_frame(make, **kw):
     return seen[0][0][0]
 
 
+class _Closed:
+    """What a test needs of a served object once it is closed: its device."""
+
+    def __init__(self, obj):
+        self.device = obj.device
+        obj.close()
+
+
+def _udp_client(**kw):
+    server = udp_bridge.A1EmulatorServer(device="cpu")
+    try:
+        return _Closed(udp_bridge.A1UdpClient(server.addr, timeout=60.0,
+                                              **kw))
+    finally:
+        server.close()
+
+
+_TINY_R2P1D = dict(blocks=((8, (1, 1, 1)),), stem_kernel=3)
+
+
 _ENTRY_POINTS = {
     "Actor": lambda **kw: Actor(49, 12, 8, **kw),
     "actor_from_flax": lambda **kw: convert.actor_from_flax(
@@ -208,6 +233,20 @@ _ENTRY_POINTS = {
     "greeting_handler": lambda **kw: _handler_frame(gt.greeting_handler,
                                                     **kw),
     "eval_handler": lambda **kw: _handler_frame(gt.eval_handler, **kw),
+    "ServiceCallbacks": lambda **kw: ServiceCallbacks(
+        None, AttentionController(_SMALL_CTRL, device="cpu"), **kw),
+    "serving_bench.build_models": lambda **kw: serving_bench.build_models(
+        3, **kw)[1],
+    "A1EmulatorServer": lambda **kw: _Closed(udp_bridge.A1EmulatorServer(
+        **kw)),
+    "A1UdpClient": _udp_client,
+    "R2Plus1D18": lambda **kw: R2Plus1D18(3, **_TINY_R2P1D, **kw),
+    "R2Plus1DTrainer": lambda **kw: R2Plus1DTrainer(3, **_TINY_R2P1D, **kw),
+    "MobileNetV2": lambda **kw: MobileNetV2(width=0.35, **kw),
+    "ResNet": lambda **kw: ResNet(depths=(1, 1, 1, 1), **kw),
+    "import_tf_consts": lambda **kw: reid.import_tf_consts(dict(
+        reid.export_tf_consts(MarsSmall128(
+            device="cpu", generator=torch.Generator()))), **kw),
 }
 
 
@@ -246,6 +285,9 @@ def _cli_argvs(tmp: pathlib.Path) -> dict:
             "--synthetic", "1", "--epochs", "1", "--outdir", str(tmp)]),
         "serve_grpc": (serve_grpc.main, ["--smoke", "--steps", "1"]),
         "collect_data": (collect_data.main, ["-d", str(tmp)]),
+        "serving_bench": (serving_bench.main, ["--frames", "1"]),
+        "robot_exercise": (robot_exercise.main, ["--steps", "1"]),
+        "robot_exercise_udp": (robot_exercise.main, ["--udp", "emulator"]),
     }
 
 
@@ -253,7 +295,8 @@ def _cli_argvs(tmp: pathlib.Path) -> dict:
                                   "dynamics_id", "export_gait",
                                   "train_bench", "train_attention",
                                   "parallel_train_attn", "serve_grpc",
-                                  "collect_data"])
+                                  "collect_data", "serving_bench",
+                                  "robot_exercise", "robot_exercise_udp"])
 def test_cli_without_device_needs_a_card(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

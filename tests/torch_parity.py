@@ -5,6 +5,7 @@ test_torch_physics for the reasons)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from paddlerobotics_tpu.core.config import SimConfig as JSimConfig
@@ -157,3 +158,14 @@ def assert_sac_matches(ts, js, atol):
     np.testing.assert_allclose(float(ts.log_alpha.detach()),
                                float(js.log_alpha),
                                atol=atol)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread for a test (imported by a test file, it applies
+    to each of its tests): the suite's workers share the cores, and
+    spinning thread pools slow every worker by an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
