@@ -57,6 +57,16 @@ to 0 just before it and read just after:
   ``NativeClipEvalServer`` with R(2+1)D-18 on 8 × 3 × 224² clips against
   a direct model call on the clip C++ preprocessed; every native handle's
   ``check()`` raises what a callback raised;
+- the HRI data tools: the full-width ERNIE utterance encoder (~100 M
+  parameters, seeded) over the 317-utterance catalog padded to 64 tokens
+  (12 attention launches per encode, the kernel at its key-padding masks
+  against its plain version), ``cli.collect_act_emb`` with ERNIE and BoW
+  into a bundle through ``cli.export_hri_model --wae``, ``WindowSampler`` →
+  ``PrefetchLoader`` with the YOLOv4 ``WindowTokenizer`` → ``AttentionTrainer``
+  steps at the CLI's width (a failing sample raised from the loader), the
+  salutation and discrete heads against the CPU; ``make_env`` vmapped at
+  B=64 for 5 control steps against ``BatchedQuadrupedEnv`` through the
+  physics kernel (one launch per step) and against itself on the CPU;
 - the A1 UDP bridge: ``deploy.udp_bridge.A1EmulatorServer`` +
   ``A1UdpClient`` + ``cli.robot_exercise.run_exercise`` over 300 commands
   (one physics launch per non-zero command, at B=1), the first 20 again
@@ -197,6 +207,15 @@ UDP_BLEND = 100                         # run_exercise: blend commands
 UDP_STEPS = 200                         # then the hip sinusoid
 UDP_VS_PLAIN = 20                       # commands again, plain physics
 BACKBONE_RTOL = 1e-4                    # card vs CPU, of the output's scale
+ERNIE_ROWS = 317                        # the serving action catalog
+ERNIE_LEN = 64                          # tokens per utterance, padded
+ERNIE_TOL = 1e-4                        # kernel vs plain, of each output's scale
+HRI_DATA_STEPS = 3                      # trainer steps on loader batches
+PER_ENV_B = 64
+PER_ENV_STEPS = 5
+# the per-env env, card vs CPU: rtol and atol (the observation divides
+# angles by 0.1, as in the CPU parity tests)
+PER_ENV_CPU_TOL = 1e-4
 # a Darknet cfg at 416² with every section type the importer reads: strided
 # and grouped convolutions, both max pools, a shortcut, an upsample, routes
 # with groups and two sources, two [yolo] heads (13² and 52²) with their
@@ -357,15 +376,19 @@ def instance(kernel_name: str) -> str:
     return ",".join(re.findall(r"Li(\d+)E", kernel_name)) or kernel_name
 
 
-def attn_bound(B: int, H: int, T: int, S: int, hd: int) -> dict:
+def attn_bound(B: int, H: int, T: int, S: int, hd: int,
+               mask_elems: int | None = None) -> dict:
     """Least time of one attention call on the card (ms): q, k, v, the mask
     and the output moved once each at the HBM rate; the two products,
     4·B·H·T·S·hd operations, at the fp32 CUDA-core peak (the figure of the
     first kernel, kept for continuity) and, as the kernel computes them, in
     three TF32 passes at the dense TF32 peak. The bound is the larger of
-    the bytes and the tensor-core figure."""
+    the bytes and the tensor-core figure. ``mask_elems`` is the mask's
+    stored size when it is a broadcast view (default B·T·S)."""
     flops = 4 * B * H * T * S * hd
-    n_bytes = 4 * (2 * B * H * T * hd + 2 * B * H * S * hd + B * T * S)
+    if mask_elems is None:
+        mask_elems = B * T * S
+    n_bytes = 4 * (2 * B * H * T * hd + 2 * B * H * S * hd + mask_elems)
     b_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     b_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
     return {"flops": flops, "bytes": n_bytes, "bound_bytes_ms": b_bytes,
@@ -751,7 +774,12 @@ def main() -> int:
     }]
     attn_entry, scene = hri_phases(dev, card)
     attn_entry.update(hri_train_phases(dev, card, scene))
+    data_entry = data_tools_phases(dev, card, scene)
+    attn_entry["max_abs_err"] = max(attn_entry["max_abs_err"],
+                                    data_entry.pop("ernie_pad_max_abs_err"))
+    attn_entry.update(data_entry)
     del scene
+    kernels[0]["per_env_vs_batched_launches"] = per_env_phases(dev, card)
     track_entry, track_launches = hri_track_phases(dev, card)
     attn_entry.update(track_launches)
     attn_entry.update(native_phases(dev, card, lib))
@@ -2763,6 +2791,359 @@ def robot_io_phases(dev, card) -> int:
     if not ok:
         raise RuntimeError("the re-ID encoder through the frozen graph "
                            "differs from the encoder")
+    return launches
+
+
+def ernie_catalog(n: int, seed: int) -> list:
+    """``n`` catalog rows (act, exp, utterance, movement) of the v1 action
+    space, utterances of 1 to 40 words (2 to 42 tokens of 64: most keys of
+    most rows are padding)."""
+    from paddlerobotics_torch.hri import actions
+
+    rng = np.random.default_rng(seed)
+    acts, exps = list(actions.ACTION_TO_ID), list(actions.EXPRESSION_TO_ID)
+    words = ("hello", "hi", "welcome", "nice", "to", "see", "you", "good",
+             "morning", "friend", "come", "here", "please", "thanks")
+    return [(acts[rng.integers(len(acts))], exps[rng.integers(len(exps))],
+             " ".join(rng.choice(words, rng.integers(1, 41))), "null")
+            for _ in range(n)]
+
+
+def data_tools_phases(dev, card, scene) -> dict:
+    """The HRI data tools on the card: the full-width ERNIE encoder over the
+    317-utterance catalog through the attention kernel against the same
+    module on the plain attention (``[utterance]``), the kernel against its
+    plain version at ERNIE's layer-0 inputs with their padding masks
+    (``[attn_kernel_vs_plain] case=ernie_pad``, timed in
+    ``[attn_kernel_time]``), ``cli.collect_act_emb`` with ERNIE and BoW
+    (``[collect_act_emb]``), ``WindowSampler`` → ``PrefetchLoader`` with the
+    YOLOv4 ``WindowTokenizer`` → ``AttentionTrainer`` steps, a failing
+    sample raised from the loader, and the trained checkpoint exported with
+    the table and loaded back (``[hri_data]``); ``SalutationClsTree`` and
+    ``DiscreteController`` on the card against the CPU
+    (``[salutation]``). Returns the attention entry's additions."""
+    import shutil
+
+    import torch.nn.functional as F
+
+    from paddlerobotics_torch.cli import collect_act_emb, export_hri_model
+    from paddlerobotics_torch.hri import actions, data, export
+    from paddlerobotics_torch.hri.attention_ctrl import AttnCtrlConfig
+    from paddlerobotics_torch.hri.perception.utterance import (
+        ErnieConfig, UtteranceEncoder)
+    from paddlerobotics_torch.hri.train_attention import AttentionTrainer
+    from paddlerobotics_torch.ops import attention
+    from paddlerobotics_torch.train import checkpoints
+    from paddlerobotics_torch.utils import profiler
+
+    out_root = ROOT / "build" / "chip_smoke" / "data"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+
+    def seeded(seed):
+        g = torch.Generator(dev)
+        g.manual_seed(seed)
+        return g
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+    # --- [utterance] ------------------------------------------------------------
+    catalog = ernie_catalog(ERNIE_ROWS, seed=0)
+    texts = [r[2] for r in catalog]
+    ecfg = ErnieConfig()
+    enc = UtteranceEncoder(cfg=ecfg, device=dev)
+    model = enc.init(seeded(30))
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = enc.token_ids(texts, ERNIE_LEN)
+    with torch.no_grad():
+        model(ids)                                   # warm-up
+        torch.cuda.synchronize()
+        attention.flash_attention.launches = 0
+        seq_k, pool_k = model(ids)
+        torch.cuda.synchronize()
+        enc_launches = attention.flash_attention.launches
+        seq_p, pool_p = model(ids, use_kernel=False)
+        h0, m = model.embed(ids)                     # layer 0's call
+        q, k, v = model.attn_0.project(h0)
+        ms_k = timed(lambda: model(ids), 5, 1)
+        ms_p = timed(lambda: model(ids, use_kernel=False), 5, 1)
+    err_seq, err_pool = rel(seq_k, seq_p), rel(pool_k, pool_p)
+    lengths = (ids > 0).sum(1).float()
+    ok = (enc_launches == ecfg.num_layers and err_seq <= ERNIE_TOL and
+          err_pool <= ERNIE_TOL and bool(torch.isfinite(pool_k).all()))
+    log("utterance", rows=len(texts), tokens=ERNIE_LEN,
+        layers=ecfg.num_layers, hidden=ecfg.hidden_size,
+        params=n_params, kernel_launches=enc_launches,
+        rel_err_sequence_vs_plain=err_seq, rel_err_pooled_vs_plain=err_pool,
+        tol=ERNIE_TOL, mean_tokens=round(lengths.mean().item(), 2),
+        min_tokens=int(lengths.min()), encode_ms_kernel=round(ms_k, 3),
+        encode_ms_plain=round(ms_p, 3), result="pass" if ok else "FAIL",
+        card=repr(card))
+    if not ok:
+        raise RuntimeError("ERNIE through the attention kernel disagrees with "
+                           f"the plain attention or launched {enc_launches} "
+                           f"times for {ecfg.num_layers} layers")
+
+    # --- the kernel at ERNIE's layer-0 call: key-padding masks ------------------
+    out = attention.flash_attention(q, k, v, m)
+    ref = attention.reference_attention(q, k, v, m)
+    torch.cuda.synchronize()
+    pad_err = (out - ref).abs().max().item()
+    pad_ok = (bool(torch.isfinite(out).all()) and
+              torch.allclose(out, ref, atol=ATTN_ATOL, rtol=ATTN_RTOL))
+    B, H, T, hd = q.shape
+    plan = attention.launch_plan(B, H, T, hd)
+    masked_keys = 1.0 - m[:, 0].mean().item()
+    log("attn_kernel_vs_plain", case="ernie_pad", shape=tuple(q.shape),
+        S=k.shape[2], mask_strides=tuple(m.stride()),
+        masked_key_share=round(masked_keys, 4), max_abs_err=pad_err,
+        plan=json.dumps(plan), result="pass" if pad_ok else "FAIL")
+    if not pad_ok:
+        raise RuntimeError("attention kernel disagrees with plain at ernie_pad")
+
+    def sdpa(q, k, v, m):
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=(-1e10 * (1.0 - m))[:, None])
+        return out * (m.amax(-1) > 0).to(q.dtype)[:, None, :, None]
+
+    kern = lambda: attention.flash_attention(q, k, v, m)
+    plain = lambda: attention.reference_attention(q, k, v, m)
+    lib = lambda: sdpa(q, k, v, m)
+    lib_err = (lib() - plain()).abs().max().item()
+    ms = [timed(kern, 100, 10), timed(plain, 20, 2), timed(lib, 100, 10),
+          timed(lib, 100, 0), timed(plain, 20, 0), timed(kern, 100, 0)]
+    kernel_ms, plain_ms, lib_ms = min(ms[0], ms[5]), min(ms[1], ms[4]), \
+        min(ms[2], ms[3])
+    dev_ms = {n: profiler.device_breakdown(f, reps=20)
+              for n, f in (("kernel", kern), ("plain", plain), ("sdpa", lib))}
+    kernel_dev = (dev_ms["kernel"]["device_ms_per_call"]
+                  / max(dev_ms["kernel"]["kernels_per_call"], 1e-9))
+    # the mask is the key-padding row broadcast over the queries (stride 0):
+    # B·S floats to read, not B·T·S
+    bd = attn_bound(B, H, T, k.shape[2], hd, mask_elems=B * k.shape[2])
+    log("attn_kernel_time", case="ernie_pad", B=B, H=H, T=T, S=k.shape[2],
+        hd=hd, kernel_ms=round(kernel_ms, 5), plain_ms=round(plain_ms, 5),
+        sdpa_ms=round(lib_ms, 5), sdpa_max_abs_err_vs_plain=lib_err,
+        **{f"{n}_device_ms": round(d["device_ms_per_call"], 5)
+           for n, d in dev_ms.items()},
+        kernel_device_ms_per_launch=round(kernel_dev, 5),
+        launches_per_encode=enc_launches,
+        flops=bd["flops"], bytes=bd["bytes"],
+        **{k_: round(bd[k_], 6) for k_ in (
+            "bound_bytes_ms", "bound_ops_fp32_ms", "bound_ops_tc_ms",
+            "bound_ms")},
+        bound_by=bd["bound_by"],
+        bound_share_device=round(bd["bound_ms"] / kernel_dev, 4),
+        plan=json.dumps(plan), card=repr(card))
+    del h0, q, k, v, m, out, ref, seq_k, seq_p, model, enc
+
+    # --- [collect_act_emb] --------------------------------------------------------
+    tsv = out_root / "acts.tsv"
+    tsv.write_text("".join("\t".join(r) + "\n" for r in catalog))
+    tables, cli_launches = {}, {}
+    for encoder in ("ernie", "bow"):
+        attention.flash_attention.launches = 0
+        t = time.perf_counter()
+        tables[encoder] = collect_act_emb.main([
+            "--catalog", str(tsv), "--out", str(out_root / f"{encoder}.npy"),
+            "--encoder", encoder, "--seed", "0"])
+        secs = time.perf_counter() - t
+        cli_launches[encoder] = attention.flash_attention.launches
+        tab = tables[encoder]
+        onehot = np.stack([actions.MultimodalAction(*r).one_hot()
+                           for r in catalog])
+        ok = (tab.shape == (ERNIE_ROWS, 12 + 30 + 768) and
+              bool(np.isfinite(tab).all()) and
+              np.array_equal(tab[:, :42], onehot) and
+              cli_launches[encoder] == (ecfg.num_layers
+                                        if encoder == "ernie" else 0))
+        log("collect_act_emb", encoder=encoder, shape=tab.shape,
+            seconds=round(secs, 3), kernel_launches=cli_launches[encoder],
+            distinct_utterance_rows=len({r[42:].tobytes() for r in tab}),
+            result="pass" if ok else "FAIL", card=repr(card))
+        if not ok:
+            raise RuntimeError(f"collect_act_emb --encoder {encoder}")
+
+    # --- [hri_data]: sampler → loader (YOLOv4 tokenize) → trainer -----------------
+    cfg = AttnCtrlConfig(num_actions=ERNIE_ROWS)
+    trainer = AttentionTrainer(cfg, lr=HRI_LR, weight_decay=HRI_L2,
+                               device=dev)
+    state = trainer.init(seeded(31))
+    moments = [data.AnnotatedMoment(f"clip_{i:03d}.mp4", 20 + 7 * i,
+                                    i % ERNIE_ROWS) for i in range(64)]
+    sampler = data.WindowSampler(moments, num_frames=cfg.num_frames, seed=0)
+    sampler.add_negatives(moments[::4])
+    fgen = seeded(32)
+
+    def synthetic_frames(video, idx):
+        return torch.rand((len(idx), SIZE, SIZE, 3), generator=fgen,
+                          device=dev)
+
+    tok = data.WindowTokenizer(scene, read_frames=synthetic_frames,
+                               device=dev)
+    loader = data.PrefetchLoader(sampler.sample, tok, HRI_BATCH)
+    it = iter(loader)
+    trainer.train_step(state, next(it))          # warm-up batch
+    torch.cuda.synchronize()
+    attention.flash_attention.launches = 0
+    losses = []
+    t = time.perf_counter()
+    for _ in range(HRI_DATA_STEPS):
+        losses.append(trainer.train_step(state, next(it))["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    data_launches = attention.flash_attention.launches
+    loader.close()
+    losses = [float(x) for x in losses]
+    ok = all(np.isfinite(losses)) and data_launches == 0 and \
+        not loader._thread.is_alive()
+
+    def failing():
+        raise ValueError("synthetic decode failure")
+
+    bad = data.PrefetchLoader(failing, tok, 2)
+    t = time.perf_counter()
+    try:
+        next(iter(bad))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    raise_s = time.perf_counter() - t
+    bad.close()
+    raised_ok = raised == "synthetic decode failure" and raise_s < 1.0 and \
+        not bad._thread.is_alive()
+
+    ck = checkpoints.save_attn(str(out_root / "train"), state)
+    export_hri_model.main(["--ckpt", ck, "--out", str(out_root / "bundle"),
+                           "--wae", str(out_root / "ernie.npy")])
+    bundle = export.load_bundle(str(out_root / "bundle"), device=dev)
+    d_wae = float(np.abs(bundle.wae - tables["ernie"]).max())
+    log("hri_data", windows=HRI_DATA_STEPS * HRI_BATCH, batch=HRI_BATCH,
+        steps=HRI_DATA_STEPS, seconds=round(wall, 3),
+        windows_per_s=round(HRI_DATA_STEPS * HRI_BATCH / wall, 2),
+        loss_first=round(losses[0], 5), loss_last=round(losses[-1], 5),
+        attention_launches=data_launches,
+        failing_sample_raised=repr(raised), raised_after_s=round(raise_s, 4),
+        bundle_wae_shape=tuple(bundle.wae.shape),
+        bundle_wae_max_abs_diff=d_wae,
+        result="pass" if ok and raised_ok and d_wae == 0.0 else "FAIL",
+        card=repr(card))
+    if not ok or not raised_ok or d_wae != 0.0:
+        raise RuntimeError("the data loader path failed")
+    del state, trainer, bundle
+
+    # --- [salutation]: the discrete heads, card against CPU -----------------------
+    img = torch.rand((2, SIZE, SIZE, 3), generator=seeded(33), device=dev)
+    fm = scene.get_instances_with_feats(img).feats          # (2,K,5,5,512)
+    tree = actions.SalutationClsTree(fm.shape[-1], device=dev,
+                                     generator=seeded(34))
+    tree_cpu = actions.SalutationClsTree(fm.shape[-1], device="cpu")
+    tree_cpu.load_state_dict(tree.state_dict())
+    feat = pool_k                                            # (317,768)
+    ctrl = actions.DiscreteController(feat.shape[-1],
+                                      actions.action_set_size(), (256,),
+                                      device=dev, generator=seeded(35))
+    ctrl_cpu = actions.DiscreteController(feat.shape[-1],
+                                          actions.action_set_size(), (256,),
+                                          device="cpu")
+    ctrl_cpu.load_state_dict(ctrl.state_dict())
+    with torch.no_grad():
+        t_card, t_cpu = tree(fm), tree_cpu(fm.cpu())
+        c_card, c_cpu = ctrl(feat), ctrl_cpu(feat.cpu())
+    e_tree, e_ctrl = rel(t_card.cpu(), t_cpu), rel(c_card.cpu(), c_cpu)
+    ok = e_tree <= BACKBONE_RTOL and e_ctrl <= BACKBONE_RTOL and \
+        t_card.shape == fm.shape[:2] + (6,)
+    log("salutation", tree_shape=tuple(t_card.shape),
+        tree_rel_err_vs_cpu=e_tree, ctrl_shape=tuple(c_card.shape),
+        ctrl_rel_err_vs_cpu=e_ctrl, tol=BACKBONE_RTOL,
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the salutation heads differ between card and CPU")
+    return {"utterance_launches": enc_launches,
+            "collect_act_emb_launches": cli_launches["ernie"],
+            "ernie_pad_max_abs_err": pad_err,
+            "ernie_pad_ms": kernel_ms, "ernie_pad_device_ms": kernel_dev,
+            "ernie_pad_plain_ms": plain_ms, "ernie_pad_library_ms": lib_ms,
+            "ernie_pad_bound_ms": bd["bound_ms"],
+            "ernie_pad_bound_by": bd["bound_by"]}
+
+
+def per_env_phases(dev, card) -> int:
+    """``make_env("Quadrupedal")`` vmapped at B=PER_ENV_B on the card for
+    PER_ENV_STEPS control steps from the start of ``BatchedQuadrupedEnv``
+    through the physics kernel, at the JAX tests' bounds, and against the
+    same vmapped env on the CPU (``[per_env]``). Returns the physics
+    launches of the batched env in that run."""
+    from torch.func import vmap
+
+    from paddlerobotics_torch.core.config import QuadrupedConfig
+    from paddlerobotics_torch.envs import make_env
+    from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
+    from paddlerobotics_torch.ops import physics_step
+
+    Bp = PER_ENV_B
+    env = make_env("Quadrupedal")                    # on the card
+    env_cpu = make_env("Quadrupedal", device="cpu")
+    benv = BatchedQuadrupedEnv(QuadrupedConfig(), Bp)
+    g = torch.Generator(dev)
+    g.manual_seed(40)
+    draws = env.sample_draws(g, (Bp,))
+    draws_cpu = type(draws)(*[x.cpu() for x in draws])
+    reset = vmap(lambda d: env.reset(draws=d))
+    step, step_cpu = vmap(env.step), vmap(env_cpu.step)
+    ps, pobs = reset(draws)
+    cs, cobs = vmap(lambda d: env_cpu.reset(draws=d))(draws_cpu)
+    bs, bobs = benv.reset(g)
+    err = {"obs_reset": (pobs - bobs).abs().max().item()}
+    idx = torch.full((Bp,), 5, dtype=torch.int32, device=dev)
+    err["etg_residual"] = (vmap(env._etg_residual)(ps.etg_w, ps.etg_b, idx)[0]
+                           - benv._etg_residual(bs.etg_w, bs.etg_b, idx)[0].T
+                           ).abs().max().item()
+    rng = np.random.default_rng(41)
+    actions = [torch.as_tensor(0.05 * rng.standard_normal((Bp, 12)),
+                               dtype=torch.float32, device=dev)
+               for _ in range(PER_ENV_STEPS)]
+    physics_step.control_step.launches = 0
+    step_ms, cpu_err, cpu_close = [], 0.0, True
+    for a in actions:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ps, pobs, prew, pdone, _ = step(ps, a)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        bs, bobs, _, bdone, _ = benv.step(bs, a)
+        cs, cobs, _, _, _ = step_cpu(cs, a.cpu())
+        cpu_err = max(cpu_err, (pobs.cpu() - cobs).abs().max().item())
+        cpu_close &= torch.allclose(pobs.cpu(), cobs, rtol=PER_ENV_CPU_TOL,
+                                    atol=PER_ENV_CPU_TOL)
+    torch.cuda.synchronize()
+    launches = physics_step.control_step.launches
+    s = bs.robot.s
+    err["q"] = (ps.robot.state.q - s.q.T).abs().max().item()
+    err["pos"] = (ps.robot.state.base_pos - s.pos.T).abs().max().item()
+    err["quat"] = (ps.robot.state.base_quat - s.quat.T).abs().max().item()
+    bound = {"obs_reset": 2e-3, "etg_residual": 1e-4, "q": 2e-3,
+             "pos": 5e-3, "quat": 2e-3}
+    cpu_state_err = max((getattr(ps.robot.state, f).cpu()
+                         - getattr(cs.robot.state, f)).abs().max().item()
+                        for f in ("q", "base_pos", "base_quat"))
+    b_ms = timed(lambda: benv.step(bs, actions[0]), 20, 2)
+    ok = (all(err[k] <= bound[k] for k in bound) and launches == PER_ENV_STEPS
+          and cpu_close and cpu_state_err <= PER_ENV_CPU_TOL
+          and not bool(pdone.any()) and not bool(bdone.any()))
+    log("per_env", B=Bp, steps=PER_ENV_STEPS,
+        **{f"max_abs_err_{k}_vs_batched": v for k, v in err.items()},
+        bounds=json.dumps(bound), batched_kernel_launches=launches,
+        obs_max_abs_err_card_vs_cpu=cpu_err, obs_allclose_card_vs_cpu=cpu_close,
+        state_max_abs_err_card_vs_cpu=cpu_state_err,
+        cpu_tol=PER_ENV_CPU_TOL,
+        ms_per_control_step=json.dumps([round(x, 2) for x in step_ms]),
+        batched_kernel_ms_per_control_step=round(b_ms, 4),
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the per-env env disagrees with the batched env or "
+                           "with itself on the CPU")
     return launches
 
 

@@ -21,12 +21,17 @@ from paddlerobotics_torch.algos.networks import Actor, Critic
 from paddlerobotics_torch.algos.sac import SAC, SACState
 from paddlerobotics_torch.core.config import SACConfig
 from paddlerobotics_torch.core.device import resolve_device
+from paddlerobotics_torch.hri.actions import (DiscreteController,
+                                              SalutationClsTree)
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig)
 from paddlerobotics_torch.hri.perception.backbones import MobileNetV2, ResNet
 from paddlerobotics_torch.hri.perception.reid import MarsSmall128
 from paddlerobotics_torch.hri.perception.scene import (DarknetSceneSensor,
                                                        SceneSensor)
+from paddlerobotics_torch.hri.perception.utterance import (BoWEncoder,
+                                                           ErnieConfig,
+                                                           ErnieEncoder)
 from paddlerobotics_torch.hri.r2plus1d import (R2PLUS1D18_BLOCKS, R2Plus1D18,
                                                flax_names)
 from paddlerobotics_torch.hri.train_attention import (AttentionTrainer,
@@ -103,7 +108,7 @@ def load_flax(module: torch.nn.Module, variables: Mapping) -> None:
 
     Dense kernels (in, out) become ``weight`` (out, in); Conv kernels
     (spatial…, in, out) become (out, in, spatial…), HWIO → OIHW; ``scale``
-    → ``weight``; BatchNorm ``mean`` / ``var`` → ``running_mean`` /
+    and Embed ``embedding`` → ``weight``; BatchNorm ``mean`` / ``var`` → ``running_mean`` /
     ``running_var``; any other leaf is a raw parameter
     of the same name. Every parameter and running statistic of ``module``
     must be set exactly once, with matching shapes."""
@@ -113,7 +118,8 @@ def load_flax(module: torch.nn.Module, variables: Mapping) -> None:
     targets.update((n, b) for n, b in module.named_buffers()
                    if n.rsplit(".", 1)[-1] in ("running_mean", "running_var"))
     leaf_name = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                 "mean": "running_mean", "var": "running_var"}
+                 "mean": "running_mean", "var": "running_var",
+                 "embedding": "weight"}
     done = set()
     items = list(_flatten(params).items()) + list(_flatten(stats).items())
     with torch.no_grad():
@@ -358,3 +364,66 @@ def bc_from_flax(state_np, obs_dim: int, action_dim: int,
     _adam_state(state.critic_opt, flax_leaves(state.critic),
                 state_np.critic_opt[0])
     return state
+
+
+def ernie_from_flax(variables_np: Mapping, cfg: ErnieConfig,
+                    device: str | torch.device | None = None
+                    ) -> ErnieEncoder:
+    """Flax ``ErnieEncoder`` variables → the port's encoder, on the card
+    unless ``device`` says otherwise. The attention's ``DenseGeneral``
+    kernels, q/k/v (H, heads, hd) and out (heads, hd, H), become (H, H)
+    Dense kernels and their (heads, hd) biases (H,), as
+    ``import_ernie_params`` reshapes the Paddle weights."""
+    H = cfg.hidden_size
+    params = {k: dict(v) for k, v in
+              variables_np.get("params", variables_np).items()}
+    for i in range(cfg.num_layers):
+        attn = params[f"attn_{i}"]
+        params[f"attn_{i}"] = {
+            proj: {"kernel": np.asarray(attn[proj]["kernel"]).reshape(H, H),
+                   "bias": np.asarray(attn[proj]["bias"]).reshape(H)}
+            for proj in ("query", "key", "value", "out")}
+    model = ErnieEncoder(cfg, device=device)
+    load_flax(model, {"params": params})
+    return model
+
+
+def bow_from_flax(params_np: Mapping, device: str | torch.device | None = None
+                  ) -> BoWEncoder:
+    """Flax ``BoWEncoder`` params (``Embed_0``) → the port's encoder, on the
+    card unless ``device`` says otherwise."""
+    emb = np.asarray(params_np.get("params", params_np)["Embed_0"]["embedding"])
+    model = BoWEncoder(emb.shape[0], emb.shape[1], device=device)
+    load_flax(model, params_np)
+    return model
+
+
+def discrete_ctrl_from_flax(params_np: Mapping,
+                            device: str | torch.device | None = None
+                            ) -> DiscreteController:
+    """Flax ``DiscreteController`` params (``Dense_0..``) → the port's
+    module, on the card unless ``device`` says otherwise."""
+    p = params_np.get("params", params_np)
+    ks = [np.asarray(p[f"Dense_{i}"]["kernel"]) for i in range(len(p))]
+    model = DiscreteController(ks[0].shape[0], ks[-1].shape[1],
+                               tuple(k.shape[1] for k in ks[:-1]),
+                               device=device)
+    load_flax(model, params_np)
+    return model
+
+
+def salutation_from_flax(params_np: Mapping, fm_hw: tuple = (5, 5),
+                         device: str | torch.device | None = None
+                         ) -> SalutationClsTree:
+    """Flax ``SalutationClsTree`` params (``Conv_0``, ``Dense_0..``) → the
+    port's module for (…, *fm_hw, C) feature maps, on the card unless
+    ``device`` says otherwise."""
+    p = params_np.get("params", params_np)
+    conv = np.asarray(p["Conv_0"]["kernel"])               # (1, 1, C, R)
+    n_dense = sum(k.startswith("Dense_") for k in p)
+    hidden = tuple(np.asarray(p[f"Dense_{i}"]["kernel"]).shape[1]
+                   for i in range(n_dense - 1))
+    model = SalutationClsTree(conv.shape[2], fm_hw, hidden, conv.shape[3],
+                              device=device)
+    load_flax(model, params_np)
+    return model

@@ -4,8 +4,10 @@ Port of the JAX package's ``envs/randomize.py``. ``param2dynamic``
 reproduces the reference's mapping (ETGRL/train.py:112-126): a [-1,1]⁴⁸
 vector becomes control latency 0–80 ms, foot friction 0–20, base mass
 0.5–3×, base/leg inertia scales 0.1–3×, motor kp 20–200 / kd 0–5 and a
-gravity perturbation. Unlike the JAX per-env functions, these work on the
-whole batch at once and produce batch-minor ``BDynParams`` directly.
+gravity perturbation. These work on the whole batch at once and produce
+batch-minor ``BDynParams`` directly; ``sample_dynamics_env`` and
+``dynamics_to_normalized_env`` are the per-env path's forms (one env's
+``DynamicsParams``, under ``torch.func.vmap`` for a batch).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paddlerobotics_torch.sim.dynamics import DynamicsParams
 from paddlerobotics_torch.sim.sbatch import BDynParams, F32
 
 NUM_DYNAMIC_PARAMS = 48
@@ -106,3 +109,21 @@ def dynamics_to_normalized(dyn: BDynParams) -> torch.Tensor:
     ]
     return torch.clamp(torch.cat(rows, dim=0), -1.0, 1.0)
 
+
+def sample_dynamics_env(u: torch.Tensor, jitter_u: torch.Tensor,
+                        scale: float = 1.0,
+                        jitter: bool = False) -> DynamicsParams:
+    """One env's randomized dynamics from its pre-drawn uniforms: ``u``
+    (48,) in [-1, 1) and ``jitter_u`` () in [0, 1) (used with ``jitter``),
+    the physical interpolation between the nominal dynamics at scale 0 and
+    the reference draw at scale 1, as ``sample_dynamics``."""
+    s = scale * jitter_u if jitter else torch.as_tensor(
+        scale, dtype=F32, device=u.device)
+    drawn = DynamicsParams.from_batched(param2dynamic(u[:, None]))
+    nominal = DynamicsParams.default(device=u.device)
+    return DynamicsParams(*[d + s * (r - d) for d, r in zip(nominal, drawn)])
+
+
+def dynamics_to_normalized_env(dyn: DynamicsParams) -> torch.Tensor:
+    """``dynamics_to_normalized`` of one env's ``DynamicsParams``, (48,)."""
+    return dynamics_to_normalized(dyn.batched())[:, 0]

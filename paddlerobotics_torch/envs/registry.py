@@ -1,11 +1,19 @@
-"""Per-task training recipes (an own copy of ``TASK_PRESETS`` from the JAX
-package's ``envs/registry.py``).
-
-``cli/train_quadruped.apply_task_preset`` makes a task's entry the default
-of its flags. ``make_env`` comes with the per-env path.
+"""``make_env`` — the entry point mirroring ``rlschool.make_env('Quadrupedal',
+task=..., sensor_mode=..., reward_param=..., ...)`` (ETGRL/train.py:305-309),
+returning the per-env functional ``QuadrupedEnv`` (port of the JAX package's
+``envs/registry.py``), and the per-task training recipes ``TASK_PRESETS``
+(``cli/train_quadruped.apply_task_preset`` makes a task's entry the default
+of its flags).
 """
 
 from __future__ import annotations
+
+import dataclasses
+
+from paddlerobotics_torch.core.config import QuadrupedConfig
+from paddlerobotics_torch.envs.quadruped_env import QuadrupedEnv
+
+_ENV_REGISTRY = {}
 
 # Per-task training recipes (the reference ships trained artifacts for
 # its nine tasks, README.md:77; here the registry carries the schedule
@@ -64,3 +72,54 @@ TASK_PRESETS: dict = {
                          num_envs=1024, updates_per_step=16,
                          ln_critic=True),
 }
+
+
+def register_env(name: str, factory):
+    """``make_env(name, task=..., config=..., device=..., **overrides)``
+    then calls ``factory`` with those keywords."""
+    _ENV_REGISTRY[name] = factory
+
+
+def make_env(name: str = "Quadrupedal", *,
+             task: str = "ground",
+             config: QuadrupedConfig | None = None,
+             device=None,
+             **overrides) -> QuadrupedEnv:
+    """Build a quadruped env, on the card unless ``device`` says otherwise.
+
+    Args:
+      name: env family (only 'Quadrupedal', like the reference).
+      task: one of the terrain task modes (sim/terrain.py TASK_MODES).
+      config: full config (its task_mode is replaced by ``task``).
+      **overrides: field overrides routed to the sub-config that owns them,
+        in the order reward, task, sensors, etg, train, sim, e.g.
+        reward_p=5.0, vel_d=0.5, act_mode='traj', step_y=0.05; a name no
+        sub-config has raises TypeError.
+    """
+    if name in _ENV_REGISTRY:
+        return _ENV_REGISTRY[name](task=task, config=config, device=device,
+                                   **overrides)
+    if name != "Quadrupedal":
+        raise ValueError(f"unknown env {name!r}")
+    cfg = config or QuadrupedConfig()
+    cfg = cfg.replace(task=dataclasses.replace(cfg.task, task_mode=task))
+
+    # route keyword overrides into the sub-configs that own them
+    def route(sub, **kw):
+        fields = {f.name for f in dataclasses.fields(sub)}
+        hit = {k: v for k, v in kw.items() if k in fields}
+        return dataclasses.replace(sub, **hit), {
+            k: v for k, v in kw.items() if k not in fields}
+
+    rest = overrides
+    new_reward, rest = route(cfg.reward, **rest)
+    new_task, rest = route(cfg.task, **rest)
+    new_sensors, rest = route(cfg.sensors, **rest)
+    new_etg, rest = route(cfg.etg, **rest)
+    new_train, rest = route(cfg.train, **rest)
+    new_sim, rest = route(cfg.sim, **rest)
+    if rest:
+        raise TypeError(f"unknown make_env overrides: {sorted(rest)}")
+    cfg = cfg.replace(reward=new_reward, task=new_task, sensors=new_sensors,
+                      etg=new_etg, train=new_train, sim=new_sim)
+    return QuadrupedEnv(cfg, device=device)

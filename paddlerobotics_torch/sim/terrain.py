@@ -111,3 +111,15 @@ class HeightFn:
 def height_fn(task: TaskConfig) -> HeightFn:
     """Return h(x, y) for the configured task. Shapes broadcast."""
     return HeightFn(task)
+
+
+def height_and_normal(h_fn, x: torch.Tensor, y: torch.Tensor,
+                      eps: float = 0.01):
+    """Height plus the finite-difference surface normal (unit, pointing up)
+    of the per-env path's contacts (the JAX ``terrain.height_and_normal``)."""
+    h = h_fn(x, y)
+    dhdx = (h_fn(x + eps, y) - h_fn(x - eps, y)) / (2 * eps)
+    dhdy = (h_fn(x, y + eps) - h_fn(x, y - eps)) / (2 * eps)
+    n = torch.stack([-dhdx, -dhdy, torch.ones_like(h)], dim=-1)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+    return h, n

@@ -17,7 +17,8 @@ from paddlerobotics_torch.algos import es, replay
 from paddlerobotics_torch.algos.bc import BC
 from paddlerobotics_torch.algos.networks import Actor
 from paddlerobotics_torch.algos.sac import SAC
-from paddlerobotics_torch.cli import (bc_train, collect_data, dynamics_id,
+from paddlerobotics_torch.cli import (bc_train, collect_act_emb,
+                                      collect_data, dynamics_id,
                                       eval_matrix, export_gait,
                                       parallel_train_attn, pretrain_etg,
                                       robot_exercise, serve_grpc,
@@ -26,9 +27,14 @@ from paddlerobotics_torch.cli import (bc_train, collect_data, dynamics_id,
 from paddlerobotics_torch.core.config import ESConfig, QuadrupedConfig
 from paddlerobotics_torch.deploy import (bezier, estimator, policy_export,
                                          realtime, udp_bridge)
+from paddlerobotics_torch.envs import make_env
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
+from paddlerobotics_torch.envs.quadruped_env import QuadrupedEnv
 from paddlerobotics_torch.etg import fit
+from paddlerobotics_torch.hri import data as hri_data
 from paddlerobotics_torch.hri import export, synthetic_scene, tracker
+from paddlerobotics_torch.hri.actions import (DiscreteController,
+                                              SalutationClsTree)
 from paddlerobotics_torch.hri import grpc_transport as gt
 from paddlerobotics_torch.hri import pg_proto as pb
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
@@ -39,6 +45,10 @@ from paddlerobotics_torch.hri.perception.backbones import MobileNetV2, ResNet
 from paddlerobotics_torch.hri.perception.reid import MarsSmall128
 from paddlerobotics_torch.hri.perception.scene import (DarknetSceneSensor,
                                                        SceneSensor)
+from paddlerobotics_torch.hri.perception.utterance import (BoWEncoder,
+                                                           ErnieConfig,
+                                                           ErnieEncoder,
+                                                           UtteranceEncoder)
 from paddlerobotics_torch.hri.serving import (ProactiveGreetingService,
                                               ServiceConfig)
 from paddlerobotics_torch.hri.r2plus1d import R2Plus1D18
@@ -75,7 +85,7 @@ def test_port_imports_no_jax():
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 94, out.stdout
+    assert int(n) >= 106, out.stdout
     assert bad == "[]", out.stdout
 
 
@@ -165,6 +175,8 @@ def _udp_client(**kw):
 
 
 _TINY_R2P1D = dict(blocks=((8, (1, 1, 1)),), stem_kernel=3)
+_TINY_ERNIE = ErnieConfig(vocab_size=10, hidden_size=8, num_layers=1,
+                          num_heads=2, ffn_size=8, max_len=8)
 
 
 _ENTRY_POINTS = {
@@ -247,6 +259,15 @@ _ENTRY_POINTS = {
     "import_tf_consts": lambda **kw: reid.import_tf_consts(dict(
         reid.export_tf_consts(MarsSmall128(
             device="cpu", generator=torch.Generator()))), **kw),
+    "make_env": lambda **kw: make_env("Quadrupedal", **kw),
+    "QuadrupedEnv": lambda **kw: QuadrupedEnv(QuadrupedConfig(), **kw),
+    "UtteranceEncoder": lambda **kw: UtteranceEncoder(cfg=_TINY_ERNIE, **kw),
+    "ErnieEncoder": lambda **kw: ErnieEncoder(_TINY_ERNIE, **kw),
+    "BoWEncoder": lambda **kw: BoWEncoder(10, 8, **kw),
+    "DiscreteController": lambda **kw: DiscreteController(8, 3, (4,), **kw),
+    "SalutationClsTree": lambda **kw: SalutationClsTree(8, **kw),
+    # PrefetchLoader's tokenize
+    "WindowTokenizer": lambda **kw: hri_data.WindowTokenizer(None, **kw),
 }
 
 
@@ -266,6 +287,7 @@ def test_entry_point_without_device_needs_a_card(name):
 def _cli_argvs(tmp: pathlib.Path) -> dict:
     for name, shape in (("gait", (5, 12)), ("q", (5, 12)), ("gyro", (5, 3))):
         np.save(tmp / f"{name}.npy", np.zeros(shape, np.float32))
+    (tmp / "acts.tsv").write_text("wave\tsmile\thi\tnull\n")
     return {
         "pretrain_etg": (pretrain_etg.main, [
             "--popsize", "4", "--num_envs", "8", "--generations", "1",
@@ -288,6 +310,9 @@ def _cli_argvs(tmp: pathlib.Path) -> dict:
         "serving_bench": (serving_bench.main, ["--frames", "1"]),
         "robot_exercise": (robot_exercise.main, ["--steps", "1"]),
         "robot_exercise_udp": (robot_exercise.main, ["--udp", "emulator"]),
+        **{f"collect_act_emb_{enc}": (collect_act_emb.main, [
+            "--catalog", str(tmp / "acts.tsv"), "--out", str(tmp / "w.npy"),
+            "--encoder", enc]) for enc in ("bow", "ernie")},
     }
 
 
@@ -296,7 +321,9 @@ def _cli_argvs(tmp: pathlib.Path) -> dict:
                                   "train_bench", "train_attention",
                                   "parallel_train_attn", "serve_grpc",
                                   "collect_data", "serving_bench",
-                                  "robot_exercise", "robot_exercise_udp"])
+                                  "robot_exercise", "robot_exercise_udp",
+                                  "collect_act_emb_bow",
+                                  "collect_act_emb_ernie"])
 def test_cli_without_device_needs_a_card(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
