@@ -15,6 +15,11 @@ to 0 just before it and read just after:
   each); a warm chunk, and an ES population rollout on the 320 ES envs,
   through the kernel against the same through the plain physics;
   ``cli.train_bench``'s two schedules;
+- multi-GPU training on the one card: ``ETGRLTrainer(mesh=)`` over a 1×1
+  ``DeviceMesh`` of one NCCL rank at the training configuration (the env
+  axis's gathers and reductions, the gradient all-reduce and the
+  checkpoint's gather all on NCCL), one physics launch per control step,
+  the trained actor against the same ``train()`` without a mesh;
 - the rest of the ETG-RL stack through its entry points: ETG pretraining
   (``cli.pretrain_etg``, 40 candidates on 4,080 envs), the task matrix's
   train → checkpoint → restore → eval (``cli.eval_matrix.run_task``,
@@ -60,7 +65,9 @@ to 0 just before it and read just after:
 - the HRI data tools: the full-width ERNIE utterance encoder (~100 M
   parameters, seeded) over the 317-utterance catalog padded to 64 tokens
   (12 attention launches per encode, the kernel at its key-padding masks
-  against its plain version), ``cli.collect_act_emb`` with ERNIE and BoW
+  against its plain version, in the wide plan at the catalog's batch and in
+  the split plan at the shortest rows, where key partitions hold no
+  unmasked key), ``cli.collect_act_emb`` with ERNIE and BoW
   into a bundle through ``cli.export_hri_model --wae``, ``WindowSampler`` →
   ``PrefetchLoader`` with the YOLOv4 ``WindowTokenizer`` → ``AttentionTrainer``
   steps at the CLI's width (a failing sample raised from the loader), the
@@ -150,6 +157,12 @@ ES_FIT_RTOL = 1e-5
 # bit-equal to its plain version, so the weights may differ only by the
 # learner's own run-to-run rounding
 TRAIN_PARAM_TOL = 1e-4
+# [mesh_train]: the trained actor on a one-rank NCCL mesh against the run
+# without a mesh, from the same seeds. On one rank every collective is a
+# copy and the learner's share of the batch is all of it, so the two runs
+# compute the same floats (0.0 read on the card); the bound is the learner's
+# run-to-run rounding that [train_vs_plain] allows
+MESH_ACTOR_TOL = TRAIN_PARAM_TOL
 BENCH_ITERS = 2                         # timed chunks per bench schedule
 PART_REPS = 20                          # calls of a chunk's part, timed
 # the rest of the ETG-RL stack's entry points: widths kept, depth cut
@@ -748,6 +761,7 @@ def main() -> int:
         card=repr(card))
 
     train_launches = train_phases(dev, card)
+    mesh_launches = mesh_train_phase(dev, card)
     stack_launches = stack_phases(dev, card)
 
     kernels = [{
@@ -766,6 +780,7 @@ def main() -> int:
         "plain_device_ms": plain_dev,
         "library_device_ms": None,
         "train_launches": train_launches,
+        "mesh_train_launches": mesh_launches,
         **stack_launches,
         "single_env_ms": small_ms["single_env"],
         "dynid_pop_ms": small_ms["dynid_pop"],
@@ -793,29 +808,16 @@ def main() -> int:
     return 0
 
 
-def train_phases(dev, card) -> int:
-    """The training path at full width: ``ETGRLTrainer.train`` through a
-    cold chunk, warm chunks, an eval window with its checkpoint and an ES
-    phase (``[train]``); a warm chunk through the kernel against the same
-    chunk through the plain physics (``[train_vs_plain]``); the port's
-    ``cli.train_bench`` schedules with one profiled control step each
-    (``[train_bench]``). Returns the physics launches of ``train``."""
+def train_config():
+    """``QuadrupedConfig()`` with depth alone cut: warm-up one chunk, the
+    eval window after the second chunk, the ES phase after the third.
+    Returns (cfg, what was cut)."""
     import dataclasses
-    import shutil
 
-    from paddlerobotics_torch.algos import replay
-    from paddlerobotics_torch.cli import train_bench
     from paddlerobotics_torch.core.config import QuadrupedConfig
-    from paddlerobotics_torch.ops import physics_step
-    from paddlerobotics_torch.train import checkpoints, etg_rl
-    from paddlerobotics_torch.utils import profiler
 
-    out_root = ROOT / "build" / "chip_smoke"
-    shutil.rmtree(out_root, ignore_errors=True)
     base = QuadrupedConfig()
     chunk_env = TRAIN_CHUNK * B
-    # depth alone is cut: warm-up one chunk, the eval window after the
-    # second chunk, the ES phase after the third
     cfg = dataclasses.replace(
         base,
         sac=dataclasses.replace(base.sac, warmup_steps=chunk_env),
@@ -832,6 +834,30 @@ def train_phases(dev, card) -> int:
                f"eval_every_steps {base.train.eval_every_steps}->"
                f"{2 * chunk_env}, es_every_steps {base.es.es_every_steps}->"
                f"{3 * chunk_env}")
+    return cfg, reduced
+
+
+def train_phases(dev, card) -> int:
+    """The training path at full width: ``ETGRLTrainer.train`` through a
+    cold chunk, warm chunks, an eval window with its checkpoint and an ES
+    phase (``[train]``); a warm chunk through the kernel against the same
+    chunk through the plain physics (``[train_vs_plain]``); the port's
+    ``cli.train_bench`` schedules with one profiled control step each
+    (``[train_bench]``). Returns the physics launches of ``train``."""
+    import shutil
+
+    from paddlerobotics_torch.algos import replay
+    from paddlerobotics_torch.cli import train_bench
+    from paddlerobotics_torch.core.config import QuadrupedConfig
+    from paddlerobotics_torch.ops import physics_step
+    from paddlerobotics_torch.train import checkpoints, etg_rl
+    from paddlerobotics_torch.utils import profiler
+
+    out_root = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(out_root, ignore_errors=True)
+    base = QuadrupedConfig()
+    chunk_env = TRAIN_CHUNK * B
+    cfg, reduced = train_config()
     outdir = out_root / "train"
     tr = etg_rl.ETGRLTrainer(cfg, num_envs=B, outdir=str(outdir),
                              updates_per_step=TRAIN_K, device=dev)
@@ -1068,6 +1094,98 @@ def train_phases(dev, card) -> int:
                                "the physics kernel once")
         del trb, c
     return launches
+
+
+def mesh_train_phase(dev, card) -> int:
+    """``[mesh_train]``: ``ETGRLTrainer(mesh=)`` over a mesh of one NCCL
+    rank (a ``FileStore``, ``init_device_mesh("cuda", (1, 1))``) at the
+    ``[train]`` configuration (full widths, B=4096, K=4), through
+    ``train()``: cold chunk, two warm chunks, the eval window with its
+    checkpoint, the ES phase on the 320 ES envs. Every collective of the
+    mesh path runs on NCCL (the env axis's gathers and reductions, the
+    gradient all-reduce, the checkpoint's gather). The same ``train()``
+    without a mesh, from the same seeds, is its reference. Returns the mesh
+    run's physics launches."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from paddlerobotics_torch.ops import physics_step
+    from paddlerobotics_torch.parallel import sharding
+    from paddlerobotics_torch.train import checkpoints, etg_rl
+
+    cfg, reduced = train_config()
+    chunk_env = TRAIN_CHUNK * B
+    steps = 3 * TRAIN_CHUNK + TRAIN_EPISODE + (1 + TRAIN_ES_GENS) * \
+        TRAIN_EPISODE                            # the rank's control steps
+    out_root = ROOT / "build" / "chip_smoke" / "mesh_train"
+    store = tempfile.mkdtemp(prefix="mesh_store_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(pathlib.Path(store) / "store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    runs = {}
+    try:
+        mesh = sharding.make_mesh(1, 1)
+        # NCCL makes a group's communicator at its first collective: set-up,
+        # timed apart from the training run
+        t = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group(
+            sharding.ENV))
+        torch.cuda.synchronize()
+        nccl_init_s = time.perf_counter() - t
+        for name, m in (("mesh", mesh), ("no_mesh", None)):
+            tr = etg_rl.ETGRLTrainer(cfg, num_envs=B,
+                                     outdir=str(out_root / name),
+                                     updates_per_step=TRAIN_K, mesh=m,
+                                     device=dev)
+            torch.cuda.synchronize()
+            physics_step.control_step.launches = 0
+            t = time.perf_counter()
+            carry, _ = tr.train(max_steps=3 * chunk_env,
+                                chunk_steps=TRAIN_CHUNK)
+            torch.cuda.synchronize()
+            runs[name] = {
+                "seconds": time.perf_counter() - t,
+                "launches": physics_step.control_step.launches,
+                "actor": sharding.full_state_dict(carry.sac_state.actor),
+                "critic": sharding.full_state_dict(carry.sac_state.critic),
+                "replay": carry.buffer.size,
+                "blocked": carry.buffer.blocked,
+                "ckpt": checkpoints.restore(str(
+                    out_root / name / f"itr_{2 * chunk_env}"))["sac"]}
+            del carry, tr
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    a, b = runs["mesh"], runs["no_mesh"]
+    diff = lambda x, y: max((x[k] - y[k]).abs().max().item() for k in x)
+    actor_d, critic_d = diff(a["actor"], b["actor"]), \
+        diff(a["critic"], b["critic"])
+    ckpt_d = diff(a["ckpt"]["actor"], b["ckpt"]["actor"])
+    ok = (a["launches"] == b["launches"] == steps and backend == "nccl"
+          and a["blocked"] and a["replay"] == b["replay"]
+          and actor_d <= MESH_ACTOR_TOL and ckpt_d <= MESH_ACTOR_TOL
+          and all(torch.isfinite(v).all() for v in a["actor"].values()))
+    log("mesh_train", backend=backend, world=1, mesh="1x1", B=B, K=TRAIN_K,
+        hidden=cfg.sac.hidden_dim, batch=cfg.sac.batch_size,
+        popsize=cfg.es.popsize, control_steps=steps,
+        physics_launches=a["launches"],
+        no_mesh_physics_launches=b["launches"],
+        nccl_init_seconds=round(nccl_init_s, 3),
+        seconds=round(a["seconds"], 3),
+        no_mesh_seconds=round(b["seconds"], 3),
+        actor_max_abs_diff=actor_d, critic_max_abs_diff=critic_d,
+        checkpoint_actor_max_abs_diff=ckpt_d, tol=MESH_ACTOR_TOL,
+        replay_rows=a["replay"], reduced=repr(reduced),
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the mesh trainer on NCCL disagrees with the run "
+                           "without a mesh, or launched the physics kernel "
+                           f"{a['launches']} times for {steps} control steps")
+    return a["launches"]
 
 
 @contextlib.contextmanager
@@ -2902,6 +3020,47 @@ def data_tools_phases(dev, card, scene) -> dict:
     if not pad_ok:
         raise RuntimeError("attention kernel disagrees with plain at ernie_pad")
 
+    # --- the split plan on a padding mask: ERNIE's shortest rows at the
+    # smallest batch whose grid would not fill the card, so key partitions
+    # with no unmasked key go through the split plan's merge
+    split_B = next(b_ for b_ in (1, 2, 4, 8, 16) if attention.launch_plan(
+        b_, H, T, hd)["key_partitions"] > 1)
+    rows = torch.argsort((m[:, 0] > 0).sum(-1))[:split_B]
+    qs, ks, vs = (x[rows].contiguous() for x in (q, k, v))
+    msk = m[rows].contiguous()
+    split_plan = attention.launch_plan(split_B, H, T, hd)
+    per = split_plan["keys_per_partition"]
+    empty = int((msk[:, 0].reshape(split_B, -1, per).amax(-1) == 0).sum())
+    out_s = attention.flash_attention(qs, ks, vs, msk)
+    ref_s = attention.reference_attention(qs, ks, vs, msk)
+    torch.cuda.synchronize()
+    split_err = (out_s - ref_s).abs().max().item()
+    split_ok = (bool(torch.isfinite(out_s).all()) and empty > 0 and
+                torch.allclose(out_s, ref_s, atol=ATTN_ATOL, rtol=ATTN_RTOL))
+    split_kern = lambda: attention.flash_attention(qs, ks, vs, msk)
+    split_ms = timed(split_kern, 100, 10)
+    split_plain_ms = timed(lambda: attention.reference_attention(
+        qs, ks, vs, msk), 20, 2)
+    split_prof = profiler.device_breakdown(split_kern, reps=20)
+    split_dev = (split_prof["device_ms_per_call"]
+                 / max(split_prof["kernels_per_call"], 1e-9))
+    split_bd = attn_bound(split_B, H, T, ks.shape[2], hd)
+    log("attn_kernel_vs_plain", case="split_pad", shape=tuple(qs.shape),
+        S=ks.shape[2], masked_key_share=round(
+            1.0 - msk[:, 0].mean().item(), 4),
+        empty_key_partitions=empty, partitions=split_B * (
+            ks.shape[2] // per), max_abs_err=split_err,
+        kernel_ms=round(split_ms, 5), plain_ms=round(split_plain_ms, 5),
+        kernel_device_ms_per_launch=round(split_dev, 5),
+        bound_ms=round(split_bd["bound_ms"], 6),
+        bound_by=split_bd["bound_by"],
+        plan=json.dumps(split_plan), result="pass" if split_ok else "FAIL",
+        card=repr(card))
+    if not split_ok:
+        raise RuntimeError("attention kernel's split plan disagrees with "
+                           "plain on a padding mask")
+    del qs, ks, vs, msk, out_s, ref_s
+
     def sdpa(q, k, v, m):
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=(-1e10 * (1.0 - m))[:, None])
@@ -3062,7 +3221,11 @@ def data_tools_phases(dev, card, scene) -> dict:
         raise RuntimeError("the salutation heads differ between card and CPU")
     return {"utterance_launches": enc_launches,
             "collect_act_emb_launches": cli_launches["ernie"],
-            "ernie_pad_max_abs_err": pad_err,
+            "ernie_pad_max_abs_err": max(pad_err, split_err),
+            "split_pad_max_abs_err": split_err, "split_pad_ms": split_ms,
+            "split_pad_device_ms": split_dev,
+            "split_pad_plain_ms": split_plain_ms,
+            "split_pad_bound_ms": split_bd["bound_ms"],
             "ernie_pad_ms": kernel_ms, "ernie_pad_device_ms": kernel_dev,
             "ernie_pad_plain_ms": plain_ms, "ernie_pad_library_ms": lib_ms,
             "ernie_pad_bound_ms": bd["bound_ms"],

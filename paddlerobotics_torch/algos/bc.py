@@ -58,6 +58,11 @@ class BC:
                        torch.optim.Adam(critic.parameters(),
                                         lr=self.critic_lr))
 
+    def predict(self, actor: Actor, obs: torch.Tensor) -> torch.Tensor:
+        """The student's deterministic action, tanh(mean)."""
+        mean, _ = actor(obs)
+        return torch.tanh(mean)
+
     def learn(self, state: BCState, batch: Dict[str, torch.Tensor],
               expert_state: SACState, noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None

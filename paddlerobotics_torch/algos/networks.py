@@ -10,6 +10,11 @@ the critic and the GRU actor keep the flax scope names themselves
 ``convert.load_flax`` maps a flax tree onto them by path. Every module runs
 on the card unless the caller asks for another device
 (``core/device.resolve_device``).
+
+Every layer is applied through ``parallel.sharding.linear``: a layer that
+``shard_params_tp`` split over a mesh's model axis (its dim-0 rows) gathers
+its whole output, so LayerNorm and the next layer see the whole hidden
+vector and the module computes the one-process function.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import torch
 from torch import nn
 
 from paddlerobotics_torch.core.device import resolve_device
+from paddlerobotics_torch.parallel.sharding import (copy_to_model,
+                                                    gather_from_model, linear)
 from paddlerobotics_torch.utils.init import flax_default_
 
 LOG_SIG_MIN = -20.0
@@ -43,10 +50,11 @@ class Actor(nn.Module):
             flax_default_(self, generator)
 
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = torch.relu(self.dense[0](obs))
-        x = torch.relu(self.dense[1](x))
-        mean = self.dense[2](x)
-        log_std = torch.clamp(self.dense[3](x), LOG_SIG_MIN, LOG_SIG_MAX)
+        x = torch.relu(linear(self.dense[0], obs))
+        x = torch.relu(linear(self.dense[1], x))
+        mean = linear(self.dense[2], x)
+        log_std = torch.clamp(linear(self.dense[3], x), LOG_SIG_MIN,
+                              LOG_SIG_MAX)
         return mean, log_std
 
 
@@ -78,9 +86,10 @@ class Critic(nn.Module):
     def _q(self, x, dense, lns):
         ln = (lambda h, n: getattr(self, f"LN_{n}")(h)) if self.layer_norm \
             else (lambda h, n: h)
-        h = torch.relu(ln(getattr(self, f"Dense_{dense[0]}")(x), lns[0]))
-        h = torch.relu(ln(getattr(self, f"Dense_{dense[1]}")(h), lns[1]))
-        return getattr(self, f"Dense_{dense[2]}")(h)
+        d = lambda n, v: linear(getattr(self, f"Dense_{dense[n]}"), v)
+        h = torch.relu(ln(d(0, x), lns[0]))
+        h = torch.relu(ln(d(1, h), lns[1]))
+        return d(2, h)
 
     def forward(self, obs: torch.Tensor, act: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,13 +108,25 @@ def critic_apply_fused(critic: Critic, obs: torch.Tensor, act: torch.Tensor,
     ``bf16=True`` rounds each product's inputs to bfloat16 and multiplies
     them in float32, so the sums and the result stay float32 as XLA's
     ``preferred_element_type=float32`` keeps them (a bf16 ``torch.matmul``
-    would round its output to bf16); parameters and LayerNorm stay float32."""
+    would round its output to bf16); parameters and LayerNorm stay float32.
+
+    A pair of layers split over a mesh's model axis multiplies its rows and
+    gathers the whole (2, b, out) output (``parallel/sharding``)."""
     x = torch.cat([obs, act], dim=-1)
 
     def stacked(a, b):
         la, lb = getattr(critic, f"Dense_{a}"), getattr(critic, f"Dense_{b}")
         return (torch.stack([la.weight, lb.weight]),
-                torch.stack([la.bias, lb.bias])[:, None])
+                torch.stack([la.bias, lb.bias])[:, None],
+                getattr(la, "tp", None))
+
+    def product(h, a, b, first=False):
+        w, bias, tp = stacked(a, b)
+        if tp is not None:
+            h = copy_to_model(h, tp)
+        out = (torch.einsum("bi,koi->kbo", rnd(h), rnd(w)) if first else
+               torch.bmm(rnd(h), rnd(w).transpose(1, 2))) + bias
+        return out if tp is None else gather_from_model(out, tp)
 
     def rnd(t):
         return t.to(torch.bfloat16).to(torch.float32) if bf16 else t
@@ -118,18 +139,15 @@ def critic_apply_fused(critic: Critic, obs: torch.Tensor, act: torch.Tensor,
         var = torch.mean((h - mu) ** 2, dim=-1, keepdim=True)
         return (h - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
 
-    w1, b1 = stacked(0, 3)                       # (2, o, i), (2, 1, o)
-    h = torch.einsum("bi,koi->kbo", rnd(x), rnd(w1)) + b1
+    h = product(x, 0, 3, first=True)            # weights (2, o, i)
     if critic.layer_norm:
         h = ln(h, 0, 2)
     h = torch.relu(h)
-    w2, b2 = stacked(1, 4)
-    h = torch.bmm(rnd(h), rnd(w2).transpose(1, 2)) + b2
+    h = product(h, 1, 4)
     if critic.layer_norm:
         h = ln(h, 1, 3)
     h = torch.relu(h)
-    w3, b3 = stacked(2, 5)
-    q = torch.bmm(rnd(h), rnd(w3).transpose(1, 2)) + b3
+    q = product(h, 2, 5)
     return q[0], q[1]
 
 
@@ -149,7 +167,7 @@ class GRUCell(nn.Module):
         self.add_module("hn", nn.Linear(hidden, hidden, device=device))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        g = lambda name, v: getattr(self, name)(v)
+        g = lambda name, v: linear(getattr(self, name), v)
         r = torch.sigmoid(g("ir", x) + g("hr", h))
         z = torch.sigmoid(g("iz", x) + g("hz", h))
         n = torch.tanh(g("in", x) + r * g("hn", h))
@@ -181,10 +199,11 @@ class GRUActor(nn.Module):
             obs_seq = obs_seq.reshape(obs_seq.shape[:-1]
                                       + (self.seq_len, self.frame_dim))
         h = obs_seq.new_zeros(obs_seq.shape[:-2]
-                              + (self.GRUCell_0.hr.weight.shape[0],))
+                              + (self.GRUCell_0.hr.in_features,))
         for t in range(obs_seq.shape[-2]):
             h = self.GRUCell_0(h, obs_seq[..., t, :])
-        x = torch.relu(self.Dense_0(h))
-        mean = self.Dense_1(x)
-        log_std = torch.clamp(self.Dense_2(x), LOG_SIG_MIN, LOG_SIG_MAX)
+        x = torch.relu(linear(self.Dense_0, h))
+        mean = linear(self.Dense_1, x)
+        log_std = torch.clamp(linear(self.Dense_2, x), LOG_SIG_MIN,
+                              LOG_SIG_MAX)
         return mean, log_std

@@ -11,6 +11,16 @@ holds modules and ``torch.optim.Adam`` optimisers, and ``learn`` and
 keeps an earlier state takes a ``copy.deepcopy``. Every draw comes from an
 explicit ``torch.Generator`` or is passed in pre-drawn, so a test can feed
 JAX's draws.
+
+On a mesh (``SAC(..., mesh=)``, ``parallel/sharding``) the actor and the
+critics are column-parallel over the model axis, and ``learn`` is the
+one-process update under data parallelism: every rank is given the global
+batch (``replay.sample`` on a mesh) and the global noise, and takes its env
+rank's contiguous share of the batch positions (``sharding.columns``); each
+loss is its rows' partial sum over the global batch size, the gradients are
+all-reduced (SUM) over the env axis before each optimiser step, and the
+reported losses are all-reduced the same way. A batch that does not divide
+over the env axis is replicated: every rank computes the whole update.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from paddlerobotics_torch.algos.networks import (Actor, Critic,
                                                  critic_apply_fused)
 from paddlerobotics_torch.core.config import SACConfig
 from paddlerobotics_torch.core.device import resolve_device
+from paddlerobotics_torch.parallel import sharding
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -76,14 +87,17 @@ class SAC:
     def __init__(self, obs_dim: int, action_dim: int,
                  cfg: SACConfig = SACConfig(),
                  actor: Optional[Callable[..., nn.Module]] = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         """``actor`` overrides the default MLP policy: a factory called
         with ``device`` and ``generator`` that returns a module mapping obs
-        → (mean, log_std), e.g. a ``GRUActor`` partial."""
+        → (mean, log_std), e.g. a ``GRUActor`` partial. ``mesh``: the
+        ``("env", "model")`` device mesh to train over."""
         self.cfg = cfg
         self.obs_dim = obs_dim
         self.action_dim = action_dim
         self.device = resolve_device(device)
+        sharding.check_mesh(mesh, self.device)
+        self.mesh = mesh
         self._actor = actor or (lambda **kw: Actor(
             obs_dim, action_dim, hidden=cfg.hidden_dim, **kw))
         self.target_entropy = -float(action_dim)
@@ -94,6 +108,7 @@ class SAC:
                       generator=generator)
 
     def _critic_parts(self, critic: Critic):
+        critic = sharding.shard_params_tp(self.mesh, critic)
         target = copy.deepcopy(critic).requires_grad_(False)
         return critic, target, torch.optim.Adam(critic.parameters(),
                                                 lr=self.cfg.critic_lr)
@@ -103,7 +118,8 @@ class SAC:
         ``generator``; PyTorch's own without one, for a caller that loads
         weights), target = critic, zeroed Adam states, α = cfg.alpha."""
         cfg = self.cfg
-        actor = self._actor(device=self.device, generator=generator)
+        actor = sharding.shard_params_tp(
+            self.mesh, self._actor(device=self.device, generator=generator))
         critic, target, critic_opt = self._critic_parts(
             self._critic(generator))
         log_alpha = torch.tensor(math.log(cfg.alpha), dtype=torch.float32,
@@ -135,6 +151,16 @@ class SAC:
         return critic_apply_fused(critic, obs, act,
                                   bf16=self.cfg.bf16_matmul)
 
+    @staticmethod
+    def _step(opt: torch.optim.Optimizer, cols: sharding.Columns) -> None:
+        """All-reduce the gradients of ``opt``'s parameters over the env
+        axis (when the batch is split over it), then step."""
+        if cols.group is not None:
+            sharding.all_reduce_grads(
+                [p for g in opt.param_groups for p in g["params"]],
+                cols.group)
+        opt.step()
+
     def learn(self, state: SACState, batch: Dict[str, torch.Tensor],
               noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               generator: Optional[torch.Generator] = None
@@ -142,20 +168,27 @@ class SAC:
         """One critic, actor, α and target update (sac.py:77-110), in place.
 
         batch: obs (b,o), act (b,a), rew (b,1), next_obs (b,o), terminal
-        (b,1) in the 1−done convention (train.py:148-149). ``noise`` =
+        (b,1) in the 1−done convention (train.py:148-149); on a mesh the
+        global batch, of which this rank takes its positions. ``noise`` =
         (next_noise, pi_noise), the two standard normal (b,a) draws of the
         target's and the actor loss's samples (JAX's k_next, k_pi); the
         auto-α update reuses pi_noise. Drawn from ``generator`` when not
-        given. Returns the two losses as 0-d tensors."""
+        given. Returns the two losses (of the global batch) as 0-d
+        tensors."""
         cfg = self.cfg
+        b = batch["obs"].shape[0]
         if noise is None:
-            shape = (batch["obs"].shape[0], self.action_dim)
-            noise = tuple(torch.randn(shape, generator=generator,
+            noise = tuple(torch.randn((b, self.action_dim),
+                                      generator=generator,
                                       device=batch["obs"].device)
                           for _ in range(2))
-        next_noise, pi_noise = noise
+        # this rank's batch positions: all of them without a mesh
+        cols = sharding.columns(self.mesh, b)
+        batch = {k: cols.cut(v, 0) for k, v in batch.items()}
+        next_noise, pi_noise = (cols.cut(x, 0) for x in noise)
         alpha = self.alpha(state)
         obs = batch["obs"]
+        mean = cols.part_mean
 
         # critic update against the stop-gradient target
         with torch.no_grad():
@@ -166,29 +199,28 @@ class SAC:
             target_q = torch.minimum(q1_t, q2_t) - alpha * next_logp
             target_q = batch["rew"] + cfg.gamma * batch["terminal"] * target_q
         q1, q2 = self._q(state.critic, obs, batch["act"])
-        critic_loss = (torch.mean((q1 - target_q) ** 2)
-                       + torch.mean((q2 - target_q) ** 2))
+        critic_loss = mean((q1 - target_q) ** 2) + mean((q2 - target_q) ** 2)
         state.critic_opt.zero_grad(set_to_none=True)
         critic_loss.backward()
-        state.critic_opt.step()
+        self._step(state.critic_opt, cols)
 
         # actor update against the updated critic (sac.py:77-82)
         act, logp = sample(state.actor, obs, pi_noise)
         q1, q2 = self._q(state.critic, obs, act)
-        actor_loss = torch.mean(alpha * logp - torch.minimum(q1, q2))
+        actor_loss = mean(alpha * logp - torch.minimum(q1, q2))
         state.actor_opt.zero_grad(set_to_none=True)
         actor_loss.backward(inputs=list(state.actor.parameters()))
-        state.actor_opt.step()
+        self._step(state.actor_opt, cols)
 
         # temperature update (auto-α, SAC v2) on the actor loss's noise
         if cfg.auto_alpha:
             with torch.no_grad():
                 _, logp_now = sample(state.actor, obs, pi_noise)
-            alpha_loss = -torch.mean(torch.exp(state.log_alpha)
-                                     * (logp_now + self.target_entropy))
+            alpha_loss = -mean(torch.exp(state.log_alpha)
+                               * (logp_now + self.target_entropy))
             state.alpha_opt.zero_grad(set_to_none=True)
             alpha_loss.backward()
-            state.alpha_opt.step()
+            self._step(state.alpha_opt, cols)
 
         # Polyak sync (sac.py:112-118): (1−τ)·target + τ·critic
         with torch.no_grad():
@@ -196,5 +228,6 @@ class SAC:
             torch._foreach_mul_(tgt, 1.0 - cfg.tau)
             torch._foreach_add_(tgt, torch._foreach_mul(
                 list(state.critic.parameters()), cfg.tau))
-        return {"critic_loss": critic_loss.detach(),
-                "actor_loss": actor_loss.detach()}
+        losses = cols.reduce(torch.stack([critic_loss.detach(),
+                                          actor_loss.detach()]))
+        return {"critic_loss": losses[0], "actor_loss": losses[1]}

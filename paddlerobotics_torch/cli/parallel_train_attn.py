@@ -1,9 +1,11 @@
 """Ablation-fleet trainer (PyTorch port of the JAX package's
 ``cli/parallel_train_attn.py``, rebuild of scripts/parallel_train_attn.py).
 
-Every input variant trains in one process on one card: one host loop
-dispatches each variant's train step before it reads any loss, so the
-card's queue holds the whole fleet's work. A real-data stream (``*.npz``
+Every input variant trains in one process: one host loop dispatches each
+variant's train step before it reads any loss, so each card's queue holds
+its variants' work. Variants are placed round-robin over the cards, variant
+i on ``cuda:i % torch.cuda.device_count()``, as the JAX CLI places them over
+``jax.devices()``. A real-data stream (``*.npz``
 windows carrying every token key) is shared by all variants, each taking
 the keys its ``inputs_type`` consumes; synthetic batches are shared by the
 variants of the first variant's type, and the others draw their own.
@@ -76,12 +78,15 @@ def main(argv=None):
     fleet = []
     for i, name in enumerate(names):
         cfg = ctrl_config(args, name)
+        v_dev = (torch.device("cuda", i % torch.cuda.device_count())
+                 if dev.type == "cuda" else dev)
         trainer = AttentionTrainer(cfg, lr=args.lr, weight_decay=args.l2,
-                                   device=dev)
-        gen = torch.Generator(dev)
+                                   device=v_dev)
+        gen = torch.Generator(v_dev)
         gen.manual_seed(i)
         outdir = os.path.join(args.outdir, name)
         fleet.append({"name": name, "cfg": cfg, "trainer": trainer,
+                      "device": v_dev,
                       "state": trainer.init(gen), "outdir": outdir,
                       "logger": m.MetricsLogger(outdir, use_tensorboard=False),
                       "seconds": 0.0})
@@ -103,10 +108,11 @@ def main(argv=None):
             for v in fleet:
                 t = time.perf_counter()
                 if args.data_dir or v["cfg"].inputs_type == first.inputs_type:
-                    batch = shared       # _tokens() selects per variant
+                    # _tokens() selects per variant
+                    batch = {k: x.to(v["device"]) for k, x in shared.items()}
                 else:
                     batch = synthetic_batch(v["cfg"], rng, args.batch_size,
-                                            dev)
+                                            v["device"])
                 auxes.append((v, v["trainer"].train_step(v["state"], batch)))
                 v["seconds"] += time.perf_counter() - t
             if step % 10 == 0 or args.synthetic:

@@ -29,6 +29,9 @@ def main(argv=None):
                         "(see train/pretrain.py docstring)")
     args = p.parse_args(argv)
     check_args(args)
+    if args.mesh not in ("0", "", "none"):
+        raise SystemExit(f"--mesh {args.mesh}: ETG pretraining runs in one "
+                         "process (the JAX CLI takes the flag and ignores it)")
     cfg = config_from_args(args)
     trainer = ETGPretrainer(cfg, num_envs=max(args.num_envs, args.popsize),
                             outdir=args.outdir, alive_bonus=args.alive_bonus,

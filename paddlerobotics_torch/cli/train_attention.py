@@ -16,6 +16,13 @@ attention (the kernel has no backward); ``--use_pallas_attention`` is kept
 in the checkpoint's config, for scoring and serving, which take the
 attention kernel on the card whatever it says. Runs on the card
 (``--device cuda``, the default) or with ``--device cpu``.
+
+``--distributed 1`` trains data-parallel over every card (the JAX CLI's
+mesh over every device on "env"): each rank takes its rows of each batch
+and the gradients are all-reduced (``AttentionTrainer(mesh=)``). Started
+plainly the CLI starts one NCCL rank per card; under ``torchrun`` it joins
+the ranks given. With ``--device cpu`` give the gloo ranks' count,
+``--distributed N`` (N ≥ 2). Rank 0 writes the metrics and checkpoints.
 """
 
 from __future__ import annotations
@@ -48,7 +55,9 @@ def build_parser():
     p.add_argument("--outdir", type=str, default="attn_log")
     p.add_argument("--use_pallas_attention", type=int, default=0)
     p.add_argument("--distributed", type=int, default=0,
-                   help="shard batches over devices (not ported: refused)")
+                   help="shard batches over devices: 1 = every card (or "
+                   "every rank torchrun started); with --device cpu, N >= 2 "
+                   "gloo ranks")
     p.add_argument("--init_params", type=str, default="",
                    help="checkpoint (itr_<step>.pt) to resume from: "
                    "weights, optimiser and step counter")
@@ -84,29 +93,58 @@ def ctrl_config(args, inputs_type: str, use_pallas_attention: bool = False):
 
 
 def main(argv=None):
+    """Train in this process, or with ``--distributed`` on every rank."""
+    import torch.distributed as dist
+
+    from paddlerobotics_torch.parallel import launch
+
     args = build_parser().parse_args(argv)
-    if args.distributed:
-        raise SystemExit("--distributed 1: multi-GPU data parallelism is not "
-                         "ported (the torch.distributed slice); train on one "
-                         "card")
+    if not args.distributed:
+        return run(args)
+    cpu = torch.device(args.device).type == "cpu"
+    if cpu and args.distributed == 1 and not (
+            dist.is_initialized() or launch.under_torchrun()):
+        raise SystemExit("--distributed 1 on the CPU: give the gloo ranks' "
+                         "count, --distributed N")
+    shape = launch.mesh_shape(
+        f"{args.distributed}x1" if cpu and args.distributed > 1 else "1",
+        args.device)
+    launch.run_ranks(_dist_rank, shape[0], (args, shape[0]), args.device)
+
+
+def _dist_rank(local_rank: int, args, n_env: int):
+    """One rank of a ``--distributed`` run (spawned ranks import it by
+    name)."""
+    from paddlerobotics_torch.parallel import launch, sharding
+
+    device = launch.rank_device(args.device, local_rank)
+    run(args, sharding.make_mesh(n_env, 1, device_type=device.type), device)
+
+
+def run(args, mesh=None, device=None):
     from paddlerobotics_torch.core.device import resolve_device
     from paddlerobotics_torch.hri.train_attention import (AttentionTrainer,
                                                           synthetic_batch)
+    from paddlerobotics_torch.parallel import sharding
     from paddlerobotics_torch.train import checkpoints, metrics as m
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(device or args.device)
     cfg = ctrl_config(args, args.inputs_type,
                       bool(args.use_pallas_attention))
     trainer = AttentionTrainer(cfg, lr=args.lr, weight_decay=args.l2,
-                               device=dev)
+                               mesh=mesh, device=dev)
     gen = torch.Generator(dev)
     gen.manual_seed(0)
     state = trainer.init(gen)
+    sharding.replicate(mesh, state.model)
+    writer = sharding.is_writer()
     if args.init_params:
         restored = checkpoints.restore(args.init_params, device=dev)
         checkpoints.load_attn_state(state, restored["attn"])
-        print(f"resumed from {args.init_params} at step {state.step}")
-    logger = m.MetricsLogger(args.outdir, use_tensorboard=False)
+        if writer:
+            print(f"resumed from {args.init_params} at step {state.step}")
+    logger = (m.MetricsLogger(args.outdir, use_tensorboard=False) if writer
+              else m.NullLogger())
     rng = np.random.RandomState(0)
 
     aux = None
@@ -116,15 +154,16 @@ def main(argv=None):
                    if args.synthetic else
                    npz_batches(args.data_dir, args.batch_size, dev))
         for batch in batches:
-            aux = trainer.train_step(state, batch)
+            aux = trainer.train_step(state, trainer.shard_batch(batch))
             if state.step % 10 == 0 or args.synthetic:
                 logger.add_scalar("train/loss", float(aux["loss"]),
                                   state.step)
                 logger.add_scalar("train/trigger_loss",
                                   float(aux["trigger_loss"]), state.step)
-        checkpoints.save_attn(args.outdir, state)
         loss = float("nan") if aux is None else float(aux["loss"])
-        print(f"epoch {epoch} loss {loss:.4f}")
+        if writer:
+            checkpoints.save_attn(args.outdir, state)
+            print(f"epoch {epoch} loss {loss:.4f}")
     logger.close()
     return state
 

@@ -7,8 +7,19 @@ Usage:
         --max_steps 10000000 --num_envs 4096
 
 Runs on the card (``--device cuda``, the default) with the physics kernel;
-``--device cpu`` runs the plain physics. Multi-device training (``--mesh``)
-is not ported yet.
+``--device cpu`` runs the plain physics.
+
+``--mesh`` takes the JAX CLI's values: ``0`` (one process), ``1`` (every
+card on the env axis) or ``NxM`` (N env × M model ranks). Started plainly,
+the CLI starts one rank per card itself (NCCL; a mesh larger than the cards
+raises); under ``torchrun`` it joins the ranks given:
+
+    python -m paddlerobotics_torch.cli.train_quadruped --mesh 1 ...
+    torchrun --nproc_per_node 4 -m paddlerobotics_torch.cli.train_quadruped \
+        --mesh 2x2 ...
+
+With ``--device cpu`` the ranks are gloo ranks on the CPU and the mesh must
+be given as ``NxM``. Rank 0 writes the metrics and checkpoints.
 """
 
 from __future__ import annotations
@@ -104,8 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "docs/update_schedule.md")
     p.add_argument("--chunk_steps", type=int, default=50)
     p.add_argument("--mesh", type=str, default="0",
-                   help="device mesh: only 0 (off) for now; multi-device "
-                        "training comes with the torch.distributed slice")
+                   help="device mesh: 0 = off, 1 = every card on the env "
+                        "(data-parallel) axis, or 'NxM' = N-way env data "
+                        "parallelism × M-way column-parallel MLPs over "
+                        "torch.distributed (NCCL on the card, gloo with "
+                        "--device cpu, where NxM is required)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--use_pallas", type=int, default=1,
                    help="the physics kernel (kept for flag parity): on the "
@@ -286,33 +300,64 @@ def apply_task_preset(parser, argv):
 
 
 def check_args(args) -> None:
-    """Refuse what the port does not run: a mesh, and the plain physics on
-    the card (it is the tests' reference; nothing falls back to it)."""
+    """Refuse what the port does not run: the plain physics on the card (it
+    is the tests' reference; nothing falls back to it)."""
     if args.ES_every < 1:
         raise SystemExit("--ES_every must be >= 1 (it divides the step "
                          "counter; use --ES 0 to disable ES)")
-    if args.mesh not in ("0", "", "none"):
-        raise SystemExit(f"--mesh {args.mesh}: multi-device training is not "
-                         "ported yet (the torch.distributed slice, ROADMAP "
-                         "A13)")
     if torch.device(args.device).type != "cpu" and not args.use_pallas:
         raise SystemExit("--use_pallas 0 on the card: the plain physics is "
                          "the tests' reference, the card runs the kernel")
 
 
-def main(argv=None):
-    from paddlerobotics_torch.train import checkpoints
-    from paddlerobotics_torch.train.etg_rl import ETGRLTrainer
-
+def parse_args(argv=None):
     parser = build_parser()
     apply_task_preset(parser, argv)
     args = parser.parse_args(argv)
     check_args(args)
+    return args
+
+
+def main(argv=None, deadline_s: float | None = None):
+    """Train (or ``--eval``) in this process, or with ``--mesh`` on every
+    rank of the mesh: the ranks ``torchrun`` started, else one new rank per
+    card (``--device cpu``: per gloo rank of an ``NxM`` mesh), killed past
+    ``deadline_s``."""
+    from paddlerobotics_torch.parallel import launch
+
+    args = parse_args(argv)
+    shape = launch.mesh_shape(args.mesh, args.device)
+    if shape is None:
+        return run(args)
+    print(f"mesh training over {shape[0]}x{shape[1]} rank(s): env axis "
+          f"data-parallel, model axis column-parallel, replay rows in "
+          f"blocks, gradients all-reduced "
+          f"({launch.backend_for(args.device)})")
+    launch.run_ranks(_mesh_rank, shape[0] * shape[1],
+                     (args, shape), args.device, deadline_s)
+
+
+def _mesh_rank(local_rank: int, args, shape):
+    """One rank of a ``--mesh`` run (a module-level function: spawned ranks
+    import it by name)."""
+    from paddlerobotics_torch.parallel import launch, sharding
+
+    device = launch.rank_device(args.device, local_rank)
+    mesh = sharding.make_mesh(*shape, device_type=device.type)
+    run(args, mesh=mesh, device=device)
+
+
+def run(args, mesh=None, device=None):
+    from paddlerobotics_torch.parallel import sharding
+    from paddlerobotics_torch.train import checkpoints
+    from paddlerobotics_torch.train.etg_rl import ETGRLTrainer
+
     cfg = config_from_args(args)
     outdir = os.path.join(args.outdir, args.suffix)
     trainer = ETGRLTrainer(cfg, num_envs=args.num_envs, outdir=outdir,
                            updates_per_step=args.updates_per_step,
-                           device=args.device)
+                           mesh=mesh, device=device or args.device)
+    say = print if sharding.is_writer() else (lambda *a, **k: None)
     if args.load:
         trainer.restore(args.load)
     if args.eval:
@@ -327,9 +372,9 @@ def main(argv=None):
         ret, steps, infos = trainer.evaluate(sac_state.actor, w, b,
                                              cfg.train.eval_episode_len)
         steps_f = max(float(steps), 1.0)
-        print(f"eval reward {float(ret):.2f} steps {float(steps):.1f} "
-              f"velx {float(infos['velx']) / steps_f:.3f} "
-              f"success {float(infos['success']) / steps_f:.3f}")
+        say(f"eval reward {float(ret):.2f} steps {float(steps):.1f} "
+            f"velx {float(infos['velx']) / steps_f:.3f} "
+            f"success {float(infos['success']) / steps_f:.3f}")
         return
     init_param = None
     if args.ETG_path == "auto":
@@ -337,8 +382,8 @@ def main(argv=None):
 
         init_param = etg_seeds.load_seed_param(args.task_mode)
         if init_param is not None:
-            print(f"ETG seed: shipped {args.task_mode} artifact "
-                  f"({etg_seeds.seed_path(args.task_mode)})")
+            say(f"ETG seed: shipped {args.task_mode} artifact "
+                f"({etg_seeds.seed_path(args.task_mode)})")
     elif args.ETG_path not in ("", "None") and os.path.exists(args.ETG_path):
         init_param = np.load(args.ETG_path)["param"].reshape(-1)
     trainer.train(max_steps=args.max_steps, chunk_steps=args.chunk_steps,

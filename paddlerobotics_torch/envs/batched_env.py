@@ -16,6 +16,15 @@ Randomness comes from an explicit ``torch.Generator`` carried in the state.
 JAX's threefry keys and torch's generators never give the same numbers, so
 ``reset`` also takes the push salt and the dynamics as arguments, for a
 caller that must reproduce another run exactly.
+
+On a mesh (``BatchedQuadrupedEnv(config, num_envs, mesh=mesh)``) the env
+holds this env rank's columns ``[off, off + w)`` of the global batch
+(``parallel/sharding.columns``; ``self.B`` is ``w``, ``self.cols`` the
+columns). Every random draw is made at the global shape from the shared
+generator and cut to the columns, and the per-env push hash and spawn
+selection take the global column index, so the sharded env is those columns
+of the one-process env (the generator does the whole batch's draws on every
+rank, which is cheap next to the step).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from paddlerobotics_torch.etg import model as etg_model
 from paddlerobotics_torch.etg import oscillator
 from paddlerobotics_torch.ops import physics_step
 from paddlerobotics_torch.ops import smallalg as sa
+from paddlerobotics_torch.parallel import sharding
 from paddlerobotics_torch.sim import a1_model as a1
 from paddlerobotics_torch.sim import sbatch, terrain
 from paddlerobotics_torch.sim.sbatch import BDynParams, BRobot, F32
@@ -86,10 +96,12 @@ def _soa_ik(fx, fy, fz, l_hip):
 
 class BatchedQuadrupedEnv:
     def __init__(self, config: QuadrupedConfig, num_envs: int,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self.cfg = config
-        self.B = num_envs
+        self.cols = sharding.columns(mesh, num_envs)
+        self.B = self.cols.width
         self.device = resolve_device(device)
+        sharding.check_mesh(mesh, self.device)
         dev = self.device
         self.h_fn = terrain.height_fn(config.task)
         # Policy-obs latency blend reach (SimConfig.obs_latency_taps): the
@@ -219,10 +231,21 @@ class BatchedQuadrupedEnv:
         return sbatch.init_robot(self.B, height=self._spawn_height,
                                  hist_len=self._hist_len, device=self.device)
 
+    def _draw(self, fn, *rows: int, generator) -> torch.Tensor:
+        """``fn`` (torch.rand / torch.randn) at the global batch-minor shape
+        (*rows, total), cut to this env's columns."""
+        return self.cols.cut(fn(rows + (self.cols.total,),
+                                generator=generator, device=self.device))
+
     def _sample_dyn(self, gen, scale) -> BDynParams:
+        jitter = self.cfg.random.dr_scale_jitter
+        u = self.cols.cut(torch.rand(
+            (self.cols.total, randomize.NUM_DYNAMIC_PARAMS), generator=gen,
+            device=self.device) * 2.0 - 1.0, 0)
+        ju = self._draw(torch.rand, generator=gen) if jitter else None
         return randomize.sample_dynamics(
-            self.B, gen, scale=scale,
-            jitter=self.cfg.random.dr_scale_jitter, device=self.device)
+            self.B, scale=scale, jitter=jitter, u=u, jitter_u=ju,
+            device=self.device)
 
     def reset(self, generator: torch.Generator | None = None,
               etg_w: Optional[torch.Tensor] = None,
@@ -269,7 +292,7 @@ class BatchedQuadrupedEnv:
         rb = self._fresh_robot()
         if self.cfg.train.x_noise:
             # reset-position jitter (train.py --x_noise)
-            dxy = 0.02 * torch.randn((2, self.B), generator=gen, device=dev)
+            dxy = 0.02 * self._draw(torch.randn, 2, generator=gen)
             rb.s.pos[:2] += dxy
         if push_salt is None:
             push_salt = int(torch.randint(0, _INT32_MAX, (), generator=gen,
@@ -320,8 +343,8 @@ class BatchedQuadrupedEnv:
             gen = state.rng
 
             def nz(x, std):
-                return x + std * torch.randn(x.shape, generator=gen,
-                                             device=x.device)
+                return x + std * self._draw(torch.randn, *x.shape[:-1],
+                                            generator=gen)
 
             vel_s = nz(vel_s, sensors.NOISE_STD["dis"])
             rpy = nz(rpy, sensors.NOISE_STD["rpy"])
@@ -412,7 +435,7 @@ class BatchedQuadrupedEnv:
             phase = state.step_idx % 150
             # mid-cycle window so a fresh episode is never pushed at spawn
             active = (phase >= 75) & (phase < 85)
-            env_ix = torch.arange(B, dtype=torch.int32, device=dev)
+            env_ix = self.cols.index(dev).to(torch.int32)
             # Knuth multiplicative constant as signed int32
             seed = env_ix * -1640531535 + state.push_salt
             u_phi = terrain._hash01(seed, burst)
@@ -504,17 +527,17 @@ class BatchedQuadrupedEnv:
                    gen: torch.Generator) -> BEnvState:
         """Branch-free per-env reset of the envs that are done."""
         cfg = self.cfg
-        B, dev = self.B, self.device
+        dev = self.device
         fresh = self._fresh_robot()
         if cfg.train.x_noise:
             # reset-position jitter for auto-resetting envs (train.py --x_noise)
-            fresh.s.pos[:2] += 0.02 * torch.randn((2, B), generator=gen,
-                                                  device=dev)
+            fresh.s.pos[:2] += 0.02 * self._draw(torch.randn, 2,
+                                                 generator=gen)
         if cfg.train.spawn_x_max > 0:
             # spawn-on-course curriculum (TrainConfig.spawn_x_max)
-            on = (torch.arange(B, device=dev) <
-                  int(cfg.train.spawn_x_frac * B)).to(F32)
-            u = torch.rand((3, B), generator=gen, device=dev)
+            on = (self.cols.index(dev) <
+                  int(cfg.train.spawn_x_frac * self.cols.total)).to(F32)
+            u = self._draw(torch.rand, 3, generator=gen)
             xs = on * (u[0] * cfg.train.spawn_x_max)
             ys = on * (u[1] * (2 * cfg.train.spawn_y) - cfg.train.spawn_y)
             pos = fresh.s.pos.clone()

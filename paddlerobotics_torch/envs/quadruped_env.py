@@ -193,10 +193,16 @@ class QuadrupedEnv:
               ) -> Tuple[EnvState, torch.Tensor]:
         """Fresh episode (env.reset(ETG_w, ETG_b, x_noise)). ``dyn`` None
         draws the dynamics from ``draws`` under ``random_dynamics`` and
-        takes the nominal ones otherwise; without ``draws`` the push salt
-        is 0."""
+        takes the nominal ones otherwise. Under ``random_force`` every
+        episode takes a fresh push salt from ``draws`` (the JAX env draws
+        one on every reset), so a reset without them raises; elsewhere the
+        salt is unused and 0 without ``draws``."""
         dev = self.device
         rnd = self.cfg.random
+        if rnd.random_force and draws is None:
+            raise ValueError("random_force: reset needs draws "
+                             "(QuadrupedEnv.sample_draws) for the episode's "
+                             "push salt")
         if etg_w is None or etg_b is None:
             etg_w, etg_b = self.default_etg()
         if dyn is None:
@@ -402,9 +408,9 @@ class QuadrupedEnv:
         (branch-free). The returned ``done`` marks the boundary; the obs
         after a done is the fresh episode's first (the Brax/Isaac
         convention). ``draws`` feeds the fresh reset (fresh dynamics under
-        ``random_dynamics``, the x_noise spawn jitter, a fresh push salt;
-        without it the salt is kept); ``obs_noise`` the observation
-        returned."""
+        ``random_dynamics``, the x_noise spawn jitter, a fresh push salt,
+        which ``random_force`` needs; without it the unused salt is kept);
+        ``obs_noise`` the observation returned."""
         nstate, obs, rew, done, info = self.step(state, action, donef,
                                                  obs_noise)
         keep_dyn = None if self.cfg.random.random_dynamics else state.dyn

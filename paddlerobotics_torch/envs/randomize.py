@@ -88,6 +88,24 @@ def sample_dynamics(B: int, generator: torch.Generator | None = None,
     return BDynParams(*[d + scale * (r - d) for d, r in zip(nominal, drawn)])
 
 
+def sample_push_force(generator: torch.Generator | None, max_force: float,
+                      normal: torch.Tensor | None = None,
+                      uniform: torch.Tensor | None = None,
+                      device: torch.device | str = "cpu") -> torch.Tensor:
+    """A random horizontal push on the trunk (Random_Param_Dict
+    ['random_force']), (3,): a unit direction from a (2,) standard normal
+    draw and a magnitude ``uniform · max_force`` from a () uniform one; the
+    draws come from ``generator`` unless given."""
+    if normal is None:
+        normal = torch.randn((2,), generator=generator, device=device)
+    if uniform is None:
+        uniform = torch.rand((), generator=generator, device=device)
+    d = torch.as_tensor(normal, dtype=F32, device=device)
+    d = d / (torch.linalg.norm(d) + 1e-6)
+    mag = torch.as_tensor(uniform, dtype=F32, device=device) * max_force
+    return torch.cat([mag * d, torch.zeros(1, device=device)])
+
+
 def dynamics_to_normalized(dyn: BDynParams) -> torch.Tensor:
     """Invert `param2dynamic`: batch-minor physical params → the normalized
     [-1,1]⁴⁸ echo (the SENSOR_MODE["dynamic_vec"] observation), (48, B).

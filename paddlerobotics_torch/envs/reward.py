@@ -15,6 +15,10 @@ import torch
 
 from paddlerobotics_torch.core.config import RewardConfig
 
+REWARD_CHANNELS = ("torso", "up", "feet", "tau", "stand", "badfoot",
+                   "footcontact", "lateral", "velx", "rew")
+
+
 def compute_reward(cfg: RewardConfig,
                    dx: torch.Tensor,
                    velx: torch.Tensor,

@@ -62,6 +62,10 @@ class ObsHistoryWrapper:
         return self.env.B
 
     @property
+    def cols(self):
+        return self.env.cols
+
+    @property
     def device(self):
         return self.env.device
 

@@ -42,3 +42,11 @@ def update(t: torch.Tensor, cfg: ETGConfig) -> torch.Tensor:
     u = torch.as_tensor(centers(cfg), dtype=torch.float32, device=t.device)
     d2 = torch.sum((p[..., None, :] - u) ** 2, dim=-1)
     return torch.exp(-d2 / cfg.sigma_sq)
+
+
+def feature_table(cfg: ETGConfig, n_steps: int,
+                  device: torch.device | str = "cpu") -> torch.Tensor:
+    """V(t_k) at the control-step times t_k = k·dt, (n_steps, H): a whole
+    episode's phase features as one constant table."""
+    ts = torch.arange(n_steps, device=device) * cfg.dt
+    return update(ts, cfg)

@@ -95,6 +95,16 @@ class SceneSensor:
         return self.instances_from_predictions(*self._forward(images),
                                                score_threshold)
 
+    @torch.no_grad()
+    def get_feature_map(self, images: torch.Tensor) -> torch.Tensor:
+        """images (B,S,S,3) in [0,1] → the RoIAlign map (B,h,w,C), NHWC."""
+        return self._forward(images)[2]
+
+    def get_instances(self, images: torch.Tensor, **kw):
+        """images → (boxes (B,K,4), scores (B,K), valid (B,K))."""
+        inst = self.get_instances_with_feats(images, **kw)
+        return inst.boxes, inst.scores, inst.valid
+
 
 class DarknetSceneSensor(SceneSensor):
     """``SceneSensor`` on a cfg-built ``DarknetNet``, so imported

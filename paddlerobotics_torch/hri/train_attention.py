@@ -14,8 +14,15 @@ service's calls do: on the card the CUDA kernel, on the CPU its plain
 version.
 
 The state is updated in place, unlike JAX's functional carry:
-``train_step`` returns only its losses. Multi-GPU data parallelism (the JAX
-trainer's ``mesh``) is the deferred ``torch.distributed`` slice.
+``train_step`` returns only its losses.
+
+On a mesh (``AttentionTrainer(mesh=)``, ``parallel/sharding``; the JAX
+trainer's batch axis over "env", Fleet's all-reduce in the reference) each
+env rank trains on its rows of the batch (``shard_batch``). Every term of
+``controller_loss`` is a mean over the batch of per-window terms with fixed
+counts (frames, tokens), so a rank's loss over its B/n rows divided by n is
+its rows' part of the global loss; the gradients are all-reduced (SUM) over
+env before Adam's step, and the reported losses likewise.
 """
 
 from __future__ import annotations
@@ -23,12 +30,14 @@ from __future__ import annotations
 import dataclasses
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paddlerobotics_torch.core.device import resolve_device
 from paddlerobotics_torch.hri.attention_ctrl import (AttentionController,
                                                      AttnCtrlConfig,
                                                      controller_loss,
                                                      variant_token_keys)
+from paddlerobotics_torch.parallel import sharding
 
 INT_KEYS = ("frame_ids", "act_ids")
 
@@ -89,12 +98,13 @@ class AttentionTrainer:
 
     def __init__(self, cfg: AttnCtrlConfig, lr: float = 1e-4,
                  weight_decay: float = 0.1, mesh=None, device=None):
-        """weight_decay mirrors the reference's L2 regularizer 0.1."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training over a mesh is not ported (the "
-                "torch.distributed slice); train on one card")
+        """weight_decay mirrors the reference's L2 regularizer 0.1;
+        ``mesh``: data parallelism over its env axis."""
         self.device = resolve_device(device)
+        sharding.check_mesh(mesh, self.device)
+        self.mesh = mesh
+        self._group = sharding.env_group(mesh)
+        self._n_env = sharding.axis_size(mesh, sharding.ENV)
         self.cfg = cfg
         self.lr = lr
         self.weight_decay = weight_decay
@@ -143,17 +153,28 @@ class AttentionTrainer:
         """One update of ``state`` in place; returns the loss terms
         (``controller_loss``'s aux) as 0-d tensors, not read back. batch:
         the variant's tokens, frame_ids, padding_mask, has_act, act_ids,
-        is_obj (B-leading tensors on the trainer's device)."""
+        is_obj (B-leading tensors on the trainer's device; on a mesh this
+        rank's rows, ``shard_batch``)."""
         out = state.model(self._tokens(batch), batch["frame_ids"],
                           batch["padding_mask"], use_kernel=False)
         loss, aux = controller_loss(self.cfg, out, batch["has_act"],
                                     batch["is_obj"], batch["act_ids"],
                                     batch["padding_mask"])
         state.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        if self._group is None:
+            loss.backward()
+        else:
+            # this rank's rows' part of the global batch mean
+            (loss / self._n_env).backward()
+            sharding.all_reduce_grads(state.model.parameters(), self._group)
         state.opt.step()
         state.step += 1
-        return {k: v.detach() for k, v in aux.items()}
+        aux = {k: v.detach() for k, v in aux.items()}
+        if self._group is not None:
+            vals = torch.stack(list(aux.values())) / self._n_env
+            dist.all_reduce(vals, group=self._group)
+            aux = dict(zip(aux, vals))
+        return aux
 
     @torch.no_grad()
     def eval_step(self, state: AttnTrainState, batch: dict) -> dict:
@@ -172,8 +193,17 @@ class AttentionTrainer:
         return {"trigger_acc": correct.float().mean(),
                 "act_acc": act_acc.float()}
 
-    def shard_batch(self, batch):
-        raise NotImplementedError(
-            "batch sharding over a mesh is not ported (the torch.distributed "
-            "slice)")
+    def shard_batch(self, batch: dict) -> dict:
+        """This env rank's rows of a global batch (JAX's placement over
+        "env", ``hri/train_attention.py:193-201``); the batch itself without
+        a mesh. The batch must divide over the env axis, as JAX's placement
+        requires."""
+        if self.mesh is None:
+            return batch
+        B = next(iter(batch.values())).shape[0]
+        if B % self._n_env:
+            raise ValueError(f"a batch of {B} does not divide over "
+                             f"{self._n_env} env ranks")
+        cols = sharding.columns(self.mesh, B)
+        return {k: cols.cut(v, 0) for k, v in batch.items()}
 

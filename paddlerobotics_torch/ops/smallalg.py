@@ -91,6 +91,10 @@ def vscale(k: Scalar, a: Vec) -> Vec:
     return [smul(k, x) for x in a]
 
 
+def vneg(a: Vec) -> Vec:
+    return [sneg(x) for x in a]
+
+
 def cross(a: Vec, b: Vec) -> Vec:
     return [
         ssub(smul(a[1], b[2]), smul(a[2], b[1])),
@@ -183,3 +187,21 @@ def cholesky_solve(A: Mat, b: Vec) -> Vec:
             s = ssub(s, smul(L[k][i], x[k]))
         x[i] = s / L[i][i]
     return x
+
+
+# ---- packing to and from tensors --------------------------------------------
+
+def from_leading(arr: torch.Tensor, n: int) -> Vec:
+    """(n, B) tensor → list of n (B,) scalars."""
+    return [arr[i] for i in range(n)]
+
+
+def to_leading(v: Vec) -> torch.Tensor:
+    """List of (B,) scalars → (n, B) tensor."""
+    return torch.stack([torch.as_tensor(x) for x in v], dim=0)
+
+
+def broadcast_lits(v: Vec, like: torch.Tensor) -> Vec:
+    """Float literals replaced by tensors shaped like ``like`` (for
+    stacking)."""
+    return [torch.full_like(like, x) if _is_lit(x) else x for x in v]

@@ -120,6 +120,13 @@ class BDynParams(NamedTuple):
             external_force=torch.zeros((3, B), dtype=F32, device=device),
         )
 
+    @staticmethod
+    def from_leading(p) -> "BDynParams":
+        """Batch-leading per-env parameters (``sim.dynamics.DynamicsParams``
+        of a ``torch.func.vmap``, leaves (B, ...)) → batch-last."""
+        return BDynParams(*[torch.movedim(torch.as_tensor(x, dtype=F32), 0,
+                                          -1).contiguous() for x in p])
+
 
 # --- constants ---------------------------------------------------------------
 

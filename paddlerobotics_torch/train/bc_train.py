@@ -18,6 +18,12 @@ Reference semantics (BCtrain.py):
 Collection is a batched rollout (B envs together, one physics-kernel
 launch per control step on the card). Every draw comes from an explicit
 ``torch.Generator`` or is passed pre-drawn, so a test can feed JAX's.
+
+On a mesh (``BCTrainer(mesh=)``, ``parallel/sharding``) each env rank rolls
+its columns of the batch, every draw made at the global shape and cut;
+``collect`` returns the all-gathered (global) views, so the BC buffer and the
+distillation are the one process's on every rank, and ``evaluate``'s means
+are global.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from paddlerobotics_torch.algos.sac import SACState
 from paddlerobotics_torch.core.config import QuadrupedConfig
 from paddlerobotics_torch.core.device import resolve_device
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
+from paddlerobotics_torch.parallel import sharding
 from paddlerobotics_torch.train import metrics as metrics_mod
 
 # obs2noise (BCtrain.py:53-58) in the TRUNCATED (obs[3:]) layout, with
@@ -76,18 +83,22 @@ class BCTrainer:
                  etg_b: Optional[torch.Tensor] = None,
                  num_envs: int = 256, outdir: str = "bc_log",
                  sensor_noise: bool = False,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         """Runs on the card unless ``device`` says otherwise; the expert
-        (a ``SACState``) on the same device."""
+        (a ``SACState``) on the same device. ``mesh``: roll the batch's
+        columns over its env axis (``num_envs`` stays the global batch)."""
         self.cfg = config
         self.B = num_envs
         self.device = dev = resolve_device(device)
-        self.env = BatchedQuadrupedEnv(config, self.B, device=dev)
+        self.env = BatchedQuadrupedEnv(config, self.B, device=dev, mesh=mesh)
+        self.cols = self.env.cols
         self.expert_state = expert_state
         self.student_obs_dim = self.env.obs_dim - 3
         self.bc = BC(self.student_obs_dim, 12, device=dev)
         self.sensor_noise = sensor_noise
-        self.logger = metrics_mod.MetricsLogger(outdir, use_tensorboard=False)
+        self.logger = (metrics_mod.MetricsLogger(outdir,
+                                                 use_tensorboard=False)
+                       if sharding.is_writer() else metrics_mod.NullLogger())
         self.act_bound = torch.as_tensor(self.env.act_bound, device=dev)
         self.act_offset = torch.as_tensor(self.env.act_offset, device=dev)
         # the expert's trained gait: (3,H)/(3,) → batch-minor (3,H,B)/(3,B)
@@ -95,20 +106,25 @@ class BCTrainer:
         if etg_w is not None:
             f32 = lambda x: torch.as_tensor(x, dtype=torch.float32,
                                             device=dev)
-            self._etg_w = f32(etg_w)[..., None].repeat(1, 1, self.B)
-            self._etg_b = f32(etg_b)[:, None].repeat(1, self.B)
+            self._etg_w = f32(etg_w)[..., None].repeat(1, 1, self.env.B)
+            self._etg_b = f32(etg_b)[:, None].repeat(1, self.env.B)
 
     def reset(self, generator: torch.Generator | None = None):
         return self.env.reset(generator, etg_w=self._etg_w,
                               etg_b=self._etg_b)
 
+    def _draw(self, d: dict, key: str, fn, width: int, generator):
+        """``d[key]`` or ``fn`` at the global (B, width), cut to this rank's
+        rows."""
+        x = d.get(key)
+        if x is None:
+            x = fn((self.B, width), generator=generator, device=self.device)
+        return self.cols.cut(x.to(self.device), 0)
+
     def _noise(self, d: dict, key: str, generator) -> Optional[torch.Tensor]:
         if not self.sensor_noise:
             return None
-        if key in d:
-            return d[key].to(self.device)
-        return torch.randn((self.B, NOISE_DIM), generator=generator,
-                           device=self.device)
+        return self._draw(d, key, torch.randn, NOISE_DIM, generator)
 
     @torch.no_grad()
     def collect(self, bc_state: BCState, env_state, obs: torch.Tensor,
@@ -120,25 +136,27 @@ class BCTrainer:
         (n·B, d_e))), step-major. ``draws``: one dict per step replacing
         ``generator`` — ``act`` (B,12), uniform in [−1, 1) in the warm-up,
         else the student's standard normal sample noise; ``noise``
-        (B, NOISE_DIM) for the student view, with sensor noise."""
+        (B, NOISE_DIM) for the student view, with sensor noise. On a mesh
+        the env state and obs are this rank's columns, the views the
+        global batch's (all-gathered)."""
         s_list, e_list = [], []
+        uniform = lambda *a, **k: torch.rand(*a, **k) * 2.0 - 1.0
         for i in range(n_steps):
             d = draws[i] if draws is not None else {}
             s_obs = student_view(obs, self._noise(d, "noise", generator))
-            a = d.get("act")
             if warmup:
-                if a is None:
-                    a = torch.rand((self.B, 12), generator=generator,
-                                   device=self.device) * 2.0 - 1.0
-                act = a.to(self.device)
+                act = self._draw(d, "act", uniform, 12, generator)
             else:
-                act, _ = sac.sample(bc_state.actor, s_obs, a, generator)
+                act, _ = sac.sample(bc_state.actor, s_obs, self._draw(
+                    d, "act", torch.randn, 12, generator))
             env_state, nobs, _, _, _ = self.env.step(
                 env_state, act * self.act_bound + self.act_offset)
             s_list.append(s_obs)
             e_list.append(obs)
             obs = nobs
-        return env_state, obs, (torch.cat(s_list), torch.cat(e_list))
+        views = [self.cols.gather(torch.stack(v), 1).flatten(0, 1)
+                 for v in (s_list, e_list)]
+        return env_state, obs, tuple(views)
 
     def distill(self, bc_state: BCState, buf: replay.BCReplayBuffer,
                 n_updates: int, batch_size: int = REF_BATCH,
@@ -173,9 +191,10 @@ class BCTrainer:
             generator = torch.Generator(device=dev).manual_seed(0)
         noise_gen = torch.Generator(device=dev).manual_seed(17)
         state, obs = self.reset(generator)
-        ret = torch.zeros(self.B, device=dev)
-        alive = torch.ones(self.B, device=dev)
-        steps = torch.zeros(self.B, device=dev)
+        cols = self.cols
+        ret = torch.zeros(self.env.B, device=dev)
+        alive = torch.ones(self.env.B, device=dev)
+        steps = torch.zeros(self.env.B, device=dev)
         velx = torch.zeros((), device=dev)
         succ = torch.zeros((), device=dev)
         for _ in range(n_steps):
@@ -189,12 +208,13 @@ class BCTrainer:
                 autoreset=False)
             ret = ret + rew * alive
             steps = steps + alive
-            velx = velx + torch.mean(info["velx"] * alive)
-            succ = succ + torch.mean(info["success"] * alive)
+            velx = velx + cols.part_mean(info["velx"] * alive)
+            succ = succ + cols.part_mean(info["success"] * alive)
             alive = alive * (1.0 - done.to(torch.float32))
-        mean_steps = torch.clamp(torch.mean(steps), min=1.0)
-        return (torch.mean(ret), torch.mean(steps), velx / mean_steps,
-                succ / mean_steps)
+        ret, steps, velx, succ = cols.reduce(torch.stack([
+            cols.part_mean(ret), cols.part_mean(steps), velx, succ]))
+        mean_steps = torch.clamp(steps, min=1.0)
+        return ret, steps, velx / mean_steps, succ / mean_steps
 
     def train(self, total_steps: int = 200_000, distill_epochs: int = 10,
               final_epochs: int = 10, seed: int = 0,

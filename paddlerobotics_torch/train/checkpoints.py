@@ -11,6 +11,13 @@ pairs, train.py:386-390):
 
 The JAX package's Orbax checkpoints are not read here; weights come across
 through ``convert.sac_from_flax`` and ``convert.attn_train_from_flax``.
+
+On a mesh (``parallel/sharding``) a checkpoint holds the one-process layout:
+every rank gathers the model shards of the SAC modules and of their Adam
+moments (the learner is the same on every env rank), and rank 0 writes the
+file. ``load_sac_state`` cuts a one-process dict to the rank's shards, so a
+checkpoint saved on a mesh restores in one process and back onto a mesh,
+and the reverse.
 """
 
 from __future__ import annotations
@@ -22,34 +29,51 @@ from typing import Any, Dict
 import torch
 
 from paddlerobotics_torch.algos.sac import SACState
+from paddlerobotics_torch.parallel import sharding
 
-_MODULES = ("actor", "critic", "target_critic", "actor_opt", "critic_opt",
-            "alpha_opt")
+_MODULES = ("actor", "critic", "target_critic")
+# each optimiser and the module whose parameters it holds (alpha's: none)
+_OPTIMS = (("actor_opt", "actor"), ("critic_opt", "critic"),
+           ("alpha_opt", None))
 
 
 def sac_state_dict(state: SACState) -> Dict[str, Any]:
-    out = {k: getattr(state, k).state_dict() for k in _MODULES}
+    """The SAC state's modules, optimisers and ``log_alpha`` in the
+    one-process layout (model shards gathered: every rank of a mesh calls
+    it)."""
+    out = {k: sharding.full_state_dict(getattr(state, k)) for k in _MODULES}
+    for k, m in _OPTIMS:
+        opt = getattr(state, k)
+        out[k] = (opt.state_dict() if m is None else
+                  sharding.full_optim_state_dict(opt, getattr(state, m)))
     out["log_alpha"] = state.log_alpha.detach().clone()
     return out
 
 
 def load_sac_state(state: SACState, sd: Dict[str, Any]) -> None:
     """Copy a ``sac_state_dict`` into ``state``'s modules and optimisers,
-    in place."""
+    in place (cut to the rank's model shards on a mesh)."""
     for k in _MODULES:
-        getattr(state, k).load_state_dict(sd[k])
+        m = getattr(state, k)
+        m.load_state_dict(sharding.local_state_dict(m, sd[k]))
+    for k, m in _OPTIMS:
+        getattr(state, k).load_state_dict(
+            sd[k] if m is None else
+            sharding.local_optim_state_dict(getattr(state, m), sd[k]))
     with torch.no_grad():
         state.log_alpha.copy_(sd["log_alpha"])
 
 
 def save(path: str, sac_state: SACState, etg_w, etg_b, etg_param,
          step: int) -> str:
-    """Write ``path/itr_<step>.pt``; returns its path."""
-    os.makedirs(path, exist_ok=True)
+    """Write ``path/itr_<step>.pt`` (on a mesh: every rank gathers, rank 0
+    writes); returns its path."""
+    sd = sac_state_dict(sac_state)
     target = os.path.join(os.path.abspath(path), f"itr_{step}.pt")
-    torch.save({"sac": sac_state_dict(sac_state), "etg_w": etg_w,
-                "etg_b": etg_b, "etg_param": etg_param, "step": step},
-               target)
+    if sharding.is_writer():
+        os.makedirs(path, exist_ok=True)
+        torch.save({"sac": sd, "etg_w": etg_w, "etg_b": etg_b,
+                    "etg_param": etg_param, "step": step}, target)
     return target
 
 

@@ -10,6 +10,12 @@ population IS the env batch: each candidate's 48 parameters become its
 column of the batch-minor ``BDynParams`` (``envs/randomize.param2dynamic``)
 injected by ``reset(dyn=...)``, so one batched rollout evaluates the whole
 population, one physics-kernel launch per control step on the card.
+
+On a mesh (``DynamicsIdentifier(mesh=)``, ``parallel/sharding``) the
+population is split over the env axis, the reference's fan-out across
+workers (Dynamic_parallel_model.py:95-99): each rank rolls its candidates'
+columns and the fitness is all-gathered, so every rank holds the whole
+population's and the ES solver takes the same step everywhere.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from paddlerobotics_torch.core.config import QuadrupedConfig
 from paddlerobotics_torch.core.device import resolve_device
 from paddlerobotics_torch.envs import randomize
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
+from paddlerobotics_torch.parallel import sharding
 from paddlerobotics_torch.sim.sbatch import BDynParams
 from paddlerobotics_torch.train import metrics as metrics_mod
 
@@ -84,14 +91,15 @@ class DynamicsIdentifier:
     def __init__(self, config: QuadrupedConfig, gait_actions,
                  real_q, real_gyro, popsize: int = 40, sigma: float = 0.5,
                  outdir: str = "dyn_id_log",
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         """gait_actions (T,12) or (G,T,12): recorded joint-space commands
         (deltas from the default pose, like the gait_action_list npys);
         real_q (…,T,12) / real_gyro (…,T,3): the recorded responses.
         Several gaits are fitted jointly, their losses averaged, as the
         reference replays two gaits per candidate
         (Dynamic_parallel_model.py:70-77). Runs on the card unless
-        ``device`` says otherwise."""
+        ``device`` says otherwise; ``mesh`` splits the population over its
+        env axis."""
         self.cfg = config
         self.P = popsize
         self.B = popsize
@@ -100,7 +108,8 @@ class DynamicsIdentifier:
         # cfg.random says: the policy-obs blend must reach the whole ring
         config = dataclasses.replace(config, sim=dataclasses.replace(
             config.sim, obs_latency_taps=config.sim.latency_buffer_len))
-        self.env = BatchedQuadrupedEnv(config, self.B, device=dev)
+        self.env = BatchedQuadrupedEnv(config, self.B, device=dev, mesh=mesh)
+        self.cols = self.env.cols
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
         gait = f32(gait_actions)
         if gait.dim() == 2:
@@ -113,14 +122,19 @@ class DynamicsIdentifier:
             randomize.NUM_DYNAMIC_PARAMS, sigma_init=sigma,
             sigma_decay=0.99, sigma_limit=0.01, popsize=popsize,
             elite_ratio=0.1, weight_decay=0.0)
-        self.logger = metrics_mod.MetricsLogger(outdir, use_tensorboard=False)
+        self.logger = (metrics_mod.MetricsLogger(outdir,
+                                                 use_tensorboard=False)
+                       if sharding.is_writer() else metrics_mod.NullLogger())
 
     @torch.no_grad()
     def _fitness(self, solutions: torch.Tensor,
                  generator: torch.Generator | None) -> torch.Tensor:
         """(P,48) candidates → (P,) fitness, one batched replay rollout per
-        gait; every gait's reset draws from the same ``generator`` state."""
-        dyn = randomize.param2dynamic(solutions.to(self.device).T)
+        gait; every gait's reset draws from the same ``generator`` state. On
+        a mesh each rank rolls its candidates and the fitness is
+        all-gathered."""
+        cols, w = self.cols, self.env.B
+        dyn = randomize.param2dynamic(cols.cut(solutions.to(self.device).T))
         zw, zb = _zero_etg(self.env)
         gen_state = None if generator is None else generator.get_state()
         losses = []
@@ -128,11 +142,11 @@ class DynamicsIdentifier:
             if gen_state is not None:
                 generator.set_state(gen_state)
             state, _ = self.env.reset(generator, etg_w=zw, etg_b=zb, dyn=dyn)
-            q_err = torch.zeros((self.B, 12), device=self.device)
-            g_err = torch.zeros((self.B, 3), device=self.device)
+            q_err = torch.zeros((w, 12), device=self.device)
+            g_err = torch.zeros((w, 3), device=self.device)
             for t in range(self.T):
                 state, _, _, _, _ = self.env.step(
-                    state, self.gait[g, t][None, :].expand(self.B, 12),
+                    state, self.gait[g, t][None, :].expand(w, 12),
                     autoreset=False)
                 s = state.robot.s
                 dq = s.q.T - self.real_q[g, t][None, :]         # (B,12)
@@ -146,7 +160,7 @@ class DynamicsIdentifier:
             losses.append(torch.maximum(q_loss, g_loss))
         # mean over gaits (the reference averages the exp/ori rewards,
         # Dynamic_parallel_model.py:75)
-        return -torch.mean(torch.stack(losses), dim=0)
+        return cols.gather(-torch.mean(torch.stack(losses), dim=0))
 
     def score(self, solutions, generator: torch.Generator | None = None
               ) -> torch.Tensor:

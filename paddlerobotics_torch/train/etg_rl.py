@@ -30,8 +30,22 @@ State: unlike the JAX trainer's functional carry, ``TrainCarry``, the SAC
 state and the replay buffer are updated in place (``rollout_chunk``,
 ``SAC.learn``, ``replay.add_batch``); none of them returns a new one. A
 caller that keeps an earlier state takes a ``copy.deepcopy``, as
-``keep_best_eval`` does. Multi-device training (the JAX trainer's ``mesh``) comes
-with the ``torch.distributed`` slice.
+``keep_best_eval`` does.
+
+Mesh (``ETGRLTrainer(mesh=)``, ``parallel/sharding``): every rank runs this
+program on its env columns, the JAX trainer's placement made explicit
+(``init_carry``; JAX's ``_place_on_mesh``, ``train/etg_rl.py:597-621``). The
+env and the ES env hold the rank's columns and draw at the global shape; the
+trainer's own draws (actions, warm-up, replay indices, learner noise, ES
+candidates) come from the shared generator at the global shape too, and a
+column that carries meaning (``det_rollout_frac``, ``warmup_gait_frac``, a
+candidate, the ES replay sub-sample) is the global index. A step's
+transitions are all-gathered over env and each rank keeps its replay row
+block; ``SAC.learn`` all-reduces its gradients. Per-step means are global
+means (one all-reduce per chunk), ES fitness a partial sum all-reduced (not
+when the ES batch is replicated). Only rank 0 writes metrics and
+checkpoints; a checkpoint holds the one-process layout. A mesh run computes
+what the one-process run does, within float reordering.
 """
 
 from __future__ import annotations
@@ -54,6 +68,7 @@ from paddlerobotics_torch.core.device import resolve_device
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
 from paddlerobotics_torch.envs.wrappers import ObsHistoryWrapper
 from paddlerobotics_torch.etg import fit as etg_fit
+from paddlerobotics_torch.parallel import sharding
 from paddlerobotics_torch.train import checkpoints
 from paddlerobotics_torch.train import metrics as metrics_mod
 
@@ -71,9 +86,10 @@ def evaluate(env, actor, etg_w: torch.Tensor, etg_b: torch.Tensor,
 
     Returns (mean return, mean episode length, info-channel means summed
     over steps) as 0-d tensors on the env's device; envs stop counting
-    once done (no autoreset)."""
+    once done (no autoreset). On a mesh the means are over the global batch
+    (one all-reduce at the end)."""
     dev = env.device
-    B = env.B
+    B, cols = env.B, env.cols
     w_env = etg_w.to(dev)[..., None].repeat(1, 1, B)
     b_env = etg_b.to(dev)[:, None].repeat(1, B)
     state, obs = env.reset(generator, etg_w=w_env, etg_b=b_env,
@@ -90,10 +106,12 @@ def evaluate(env, actor, etg_w: torch.Tensor, etg_b: torch.Tensor,
             state, action * bound + offset, autoreset=False)
         ret = ret + rew * alive
         steps = steps + alive
-        infos = {k: infos[k] + torch.mean(info[k] * alive)
+        infos = {k: infos[k] + cols.part_mean(info[k] * alive)
                  for k in INFO_CHANNELS}
         alive = alive * (1.0 - done.to(torch.float32))
-    return torch.mean(ret), torch.mean(steps), infos
+    out = cols.reduce(torch.stack([cols.part_mean(ret), cols.part_mean(steps),
+                                   *infos.values()]))
+    return out[0], out[1], dict(zip(INFO_CHANNELS, out[2:]))
 
 
 def _seeded(device, *key: int) -> torch.Generator:
@@ -183,15 +201,15 @@ class ETGRLTrainer:
                  outdir: str = "train_log", updates_per_step: int = 1,
                  use_tensorboard: bool = False, mesh=None,
                  device: str | torch.device | None = None):
-        """Runs on the card unless ``device`` says otherwise."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training (mesh) is not ported yet: it comes "
-                "with the torch.distributed slice (ROADMAP A13)")
+        """Runs on the card unless ``device`` says otherwise; ``mesh``, a
+        ``parallel.sharding.make_mesh`` over ranks on the same device type,
+        trains over its env and model axes (``B`` stays the global batch)."""
         self.cfg = config
         self.B = num_envs or config.train.num_envs
         self.device = dev = resolve_device(device)
-        self.env = BatchedQuadrupedEnv(config, self.B, device=dev)
+        self.mesh = mesh
+        self.env = BatchedQuadrupedEnv(config, self.B, device=dev, mesh=mesh)
+        self.cols = self.env.cols
         # Temporal observation modes (SENSOR_MODE['RNN'], train.py:273-277):
         # 'stack' flattens a (T+1)-frame history for the MLP policy; 'GRU'
         # keeps the same stacked storage and encodes it with a recurrent
@@ -210,7 +228,7 @@ class ETGRLTrainer:
                     hidden=config.sac.hidden_dim,
                     seq_len=config.sensors.rnn_time_steps + 1)
         self.sac = SAC(self.env.obs_dim, self.env.action_dim, config.sac,
-                       actor=actor, device=dev)
+                       actor=actor, device=dev, mesh=mesh)
         ecfg = config.es
         # Dedicated (smaller) env batch for ES population rollouts
         # (ESConfig.es_num_envs), with the training env's wrappers.
@@ -218,7 +236,8 @@ class ETGRLTrainer:
                 and ecfg.popsize > 0:
             B_es = max(ecfg.popsize,
                        (ecfg.es_num_envs // ecfg.popsize) * ecfg.popsize)
-            es_env = BatchedQuadrupedEnv(config, B_es, device=dev)
+            es_env = BatchedQuadrupedEnv(config, B_es, device=dev,
+                                         mesh=mesh)
             if rnn_mode not in _NO_RNN:
                 es_env = self._wrap(es_env)
             self.es_env, self.es_B = es_env, B_es
@@ -228,7 +247,8 @@ class ETGRLTrainer:
         self.updates_per_step = updates_per_step
         self.outdir = outdir
         self._restore_from = None
-        self.logger = metrics_mod.MetricsLogger(outdir, use_tensorboard)
+        self.logger = (metrics_mod.MetricsLogger(outdir, use_tensorboard)
+                       if sharding.is_writer() else metrics_mod.NullLogger())
         self.act_bound = torch.as_tensor(self.env.act_bound, device=dev)
         self.act_offset = torch.as_tensor(self.env.act_offset, device=dev)
         self._prior_points = torch.as_tensor(
@@ -284,8 +304,8 @@ class ETGRLTrainer:
             scale, dtype=torch.float32, device=self.device))
 
     def _broadcast_etg(self, w, b, B: int | None = None):
-        """(3,H)/(3,) → batch-minor (3,H,B)/(3,B)."""
-        B = B or self.B
+        """(3,H)/(3,) → batch-minor (3,H,B)/(3,B) (this rank's columns)."""
+        B = B or self.env.B
         return (w[..., None].expand(*w.shape, B).contiguous(),
                 b[..., None].expand(*b.shape, B).contiguous())
 
@@ -295,7 +315,10 @@ class ETGRLTrainer:
                    ) -> Tuple[TrainCarry, torch.Tensor, torch.Tensor]:
         """The start of training from ``seed``: fresh SAC state, env reset
         on the gait fitted to ``init_etg_param`` (zeros by default), empty
-        replay; returns (carry, w, b)."""
+        replay; returns (carry, w, b). On a mesh this is the placement of
+        JAX's ``_place_on_mesh``: the env reset is the rank's columns of
+        the one-process reset, the learner column-parallel over model and
+        the same on every env rank, the replay the rank's row block."""
         cfg, dev = self.cfg, self.device
         if init_etg_param is None:
             init_etg_param = torch.zeros(cfg.es.num_params, device=dev)
@@ -304,9 +327,11 @@ class ETGRLTrainer:
         env_state, obs = self.env.reset(_seeded(dev, seed, 0), etg_w=w_env,
                                         etg_b=b_env)
         buf = replay.create(cfg.sac.memory_size, self.env.obs_dim,
-                            self.env.action_dim, device=dev)
-        carry = TrainCarry(env_state, obs,
-                           self.sac.init(_seeded(dev, seed, 1)), buf,
+                            self.env.action_dim, device=dev, mesh=self.mesh)
+        sac_state = self.sac.init(_seeded(dev, seed, 1))
+        for m in (sac_state.actor, sac_state.critic, sac_state.target_critic):
+            sharding.replicate(self.mesh, m)
+        carry = TrainCarry(env_state, obs, sac_state, buf,
                            _seeded(dev, seed, 2))
         return carry, w, b
 
@@ -321,20 +346,29 @@ class ETGRLTrainer:
         ``draws``: one dict per step replacing the carry's generator —
         warm: ``act`` (B,a) standard normal, ``idx`` (K·batch,) replay
         rows, ``learn`` K pairs (next_noise, pi_noise); cold: ``uniform``
-        (B,a) in [−1, 1), ``gait`` (B,a) standard normal."""
+        (B,a) in [−1, 1), ``gait`` (B,a) standard normal. On a mesh they
+        are the global batch's; each rank takes its columns."""
         env, cfg, B, K = self.env, self.cfg, self.B, self.updates_per_step
-        a_dim, dev = self.env.action_dim, self.device
+        a_dim, dev, cols = self.env.action_dim, self.device, self.cols
         env_state, obs = carry.env_state, carry.obs
         state, buf, gen = carry.sac_state, carry.buffer, carry.rng
-        first = lambda frac: (torch.arange(B, device=dev)
-                              < int(frac * B))[:, None]
+        first = lambda frac: (cols.index(dev) < int(frac * B))[:, None]
+
+        def draw(key, fn):
+            # a draw of the global (B, a) batch (or the caller's), cut to
+            # this rank's columns
+            x = d.get(key)
+            if x is None:
+                x = fn((B, a_dim), generator=gen, device=dev)
+            return cols.cut(x.to(dev), 0)
+
         outs = []
         for i in range(n_steps):
             d = draws[i] if draws is not None else {}
             with torch.no_grad():
                 if warm:
-                    action, _ = sac.sample(state.actor, obs, d.get("act"),
-                                           generator=gen)
+                    action, _ = sac.sample(state.actor, obs,
+                                           draw("act", torch.randn))
                     if int(cfg.sac.det_rollout_frac * B) > 0:
                         # the first envs roll the mean action so replay
                         # covers the eval-time state distribution
@@ -342,20 +376,14 @@ class ETGRLTrainer:
                             first(cfg.sac.det_rollout_frac),
                             sac.predict(state.actor, obs), action)
                 else:
-                    u = d.get("uniform")
-                    if u is None:
-                        u = torch.rand((B, a_dim), generator=gen,
-                                       device=dev) * 2.0 - 1.0
-                    action = u.to(dev)
+                    action = draw("uniform", lambda *a, **k: torch.rand(
+                        *a, **k) * 2.0 - 1.0)
                     if int(cfg.sac.warmup_gait_frac * B) > 0:
                         # the first envs roll the open-loop gait (a small
                         # residual) so replay sees walking from step one
-                        g = d.get("gait")
-                        if g is None:
-                            g = torch.randn((B, a_dim), generator=gen,
-                                            device=dev)
                         on_gait = torch.clamp(
-                            cfg.sac.warmup_gait_sigma * g.to(dev), -1.0, 1.0)
+                            cfg.sac.warmup_gait_sigma
+                            * draw("gait", torch.randn), -1.0, 1.0)
                         action = torch.where(first(cfg.sac.warmup_gait_frac),
                                              on_gait, action)
                 donef = (self._inner(env_state).step_idx + 1) > e_step
@@ -363,10 +391,11 @@ class ETGRLTrainer:
                     env_state, action * self.act_bound + self.act_offset,
                     donef)
                 terminal = 1.0 - done.to(torch.float32)  # train.py:148-149
-                replay.add_batch(buf, obs, action, rew, nobs, terminal)
-            out = {"reward": torch.mean(rew),
-                   "done_frac": torch.mean(done.to(torch.float32)),
-                   **{k: torch.mean(info[k]) for k in INFO_CHANNELS}}
+                replay.add_rows(buf, cols.gather(replay.rows(
+                    obs, action, rew, nobs, terminal)))
+            out = {"reward": cols.part_mean(rew),
+                   "done_frac": cols.part_mean(done.to(torch.float32)),
+                   **{k: cols.part_mean(info[k]) for k in INFO_CHANNELS}}
             if warm and K > 0:
                 # K updates per batched env step, their batches gathered in
                 # one pass (the buffer does not change between them)
@@ -387,8 +416,14 @@ class ETGRLTrainer:
             outs.append(out)
             obs = nobs
         carry.env_state, carry.obs = env_state, obs
-        return {k: torch.mean(torch.stack([o[k] for o in outs]))
-                for k in outs[0]}
+        res = {k: torch.mean(torch.stack([o[k] for o in outs]))
+               for k in outs[0]}
+        # the env's means summed over the ranks in one collective (the
+        # learner's losses are global already)
+        env_keys = [k for k in res if k not in ("critic_loss", "actor_loss")]
+        res.update(zip(env_keys, cols.reduce(
+            torch.stack([res[k] for k in env_keys]))))
+        return res
 
     # -- ES population evaluation --------------------------------------------
 
@@ -403,10 +438,14 @@ class ETGRLTrainer:
         Returns per-candidate mean return and mean episode length; with
         ``buffer`` (--es_rpm, train.py:240-241) the first env of each
         candidate also feeds replay (P transitions per step, written in
-        place)."""
+        place). On a mesh the candidates ride the ES env's columns (global
+        indices), the P replay rows are cut from the all-gathered step, and
+        the per-candidate sums are all-reduced unless the ES batch is
+        replicated."""
         B, P, dev = self.es_B, popsize, self.device
+        cols = self.es_env.cols
         per = B // P
-        cand = torch.clamp(torch.arange(B, device=dev) // per, max=P - 1)
+        cand = torch.clamp(cols.index(dev) // per, max=P - 1)
         w_env = torch.movedim(etg_w_pop[cand], 0, -1).contiguous()  # (3,H,B)
         b_env = torch.movedim(etg_b_pop[cand], 0, -1).contiguous()  # (3,B)
         # dr_scale=es_dyn_scale (default 0: nominal dynamics) so ES fitness
@@ -417,24 +456,25 @@ class ETGRLTrainer:
         state, obs = self.es_env.reset(generator, etg_w=w_env, etg_b=b_env,
                                        dr_scale=dr0)
         sub = torch.arange(P, device=dev) * per      # replay sub-sample
-        ret = torch.zeros(B, device=dev)
-        alive = torch.ones(B, device=dev)
-        steps = torch.zeros(B, device=dev)
+        ret = torch.zeros(cols.width, device=dev)
+        alive = torch.ones(cols.width, device=dev)
+        steps = torch.zeros(cols.width, device=dev)
         for _ in range(n_steps):
             action = sac.predict(actor, obs)
             state, nobs, rew, done, _ = self.es_env.step(
                 state, action * self.act_bound + self.act_offset,
                 autoreset=False)
             if buffer is not None:
-                replay.add_batch(
-                    buffer, obs[sub], action[sub], rew[sub], nobs[sub],
-                    1.0 - done[sub].to(torch.float32))
+                replay.add_rows(buffer, cols.gather(replay.rows(
+                    obs, action, rew, nobs,
+                    1.0 - done.to(torch.float32)))[sub])
             ret = ret + rew * alive
             steps = steps + alive
             alive = alive * (1.0 - done.to(torch.float32))
             obs = nobs
         seg = lambda x: torch.zeros(P, device=dev).index_add_(0, cand, x)
-        return seg(ret) / per, seg(steps) / per
+        out = cols.reduce(torch.stack([seg(ret), seg(steps)]))
+        return out[0] / per, out[1] / per
 
     # -- evaluation ----------------------------------------------------------
 
@@ -534,6 +574,8 @@ class ETGRLTrainer:
             rst = cfg.sac.critic_reset_steps
             if rst > 0 and total_steps // rst > reset_flag and warm:
                 reset_flag = total_steps // rst
+                # on a mesh the fresh critic is column-parallel again
+                # (JAX re-shards it, train/etg_rl.py:508-515)
                 self.sac.reset_critic(carry.sac_state,
                                       _seeded(dev, 911, reset_flag))
                 self.logger.add_scalar("train/critic_reset", 1.0,
@@ -556,7 +598,7 @@ class ETGRLTrainer:
                                  etg_best_param, total_steps)
                 if e_step < tcfg.e_step_max:
                     e_step += tcfg.e_step_growth
-                if checkpoint:
+                if checkpoint:        # every rank gathers, rank 0 writes
                     checkpoints.save(self.outdir, carry.sac_state, w, b,
                                      etg_best_param, total_steps)
 

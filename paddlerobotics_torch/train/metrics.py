@@ -36,7 +36,24 @@ class MetricsLogger:
         if self._tb is not None:
             self._tb.add_scalar(tag, float(value), int(step))
 
+    def add_scalars(self, prefix: str, scalars: dict, step: int):
+        for k, v in scalars.items():
+            self.add_scalar(f"{prefix}/{k}", v, step)
+
     def close(self):
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullLogger:
+    """A logger that writes nothing: every rank but rank 0 of a mesh run."""
+
+    def add_scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def add_scalars(self, prefix: str, scalars: dict, step: int):
+        pass
+
+    def close(self):
+        pass

@@ -194,3 +194,16 @@ def test_train_runs_the_bucketed_update_counts(tmp_path, monkeypatch):
     # three phases of 4 control steps at B=256, then 1 × 3 final sweeps
     assert counts == [(2, 1024), (4, 2048), (8, 3072), (3, 3072)]
     assert all(np.isfinite(v) for v in losses.values())
+
+
+def test_predict_matches_jax():
+    """``BC.predict`` (JAX algos/bc.py:48): tanh of the student's mean on
+    converted weights."""
+    jbc = JBC(S, A, hidden=H)
+    st = jbc.init(jax.random.key(1))
+    ts = convert.bc_from_flax(_np(st), S, A, hidden=H, device="cpu")
+    obs = _batch(0)["obs"]
+    got = BC(S, A, hidden=H, device="cpu").predict(ts.actor, _t(obs))
+    np.testing.assert_allclose(got.detach().numpy(),
+                               np.asarray(jbc.predict(st.actor_params, obs)),
+                               atol=1e-6)

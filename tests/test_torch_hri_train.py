@@ -27,6 +27,7 @@ Tolerances:
 """
 
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -244,10 +245,14 @@ def test_trainer_tokens_dummy_and_refusals():
             {k: tuple(v.shape) for k, v in jdummy.items()}
         with pytest.raises(KeyError, match="token keys"):
             tr._tokens({"frame_ids": None})
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        AttentionTrainer(AttnCtrlConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tr.shard_batch({})
+    # a mesh of ranks on another device type is refused; without a mesh a
+    # batch is not cut (the mesh itself runs on gloo ranks in
+    # tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="a mesh of cuda ranks"):
+        AttentionTrainer(AttnCtrlConfig(), device="cpu",
+                         mesh=types.SimpleNamespace(device_type="cuda"))
+    batch = {"frame_ids": torch.zeros(2, 3)}
+    assert tr.shard_batch(batch) is batch
     with pytest.raises(ValueError, match="inputs_type"):
         AttentionController(AttnCtrlConfig(inputs_type="bogus"),
                             device="cpu")

@@ -335,3 +335,90 @@ def test_cli_without_device_needs_a_card(name, tmp_path):
 def test_train_bench_refuses_the_plain_physics():
     with pytest.raises(SystemExit, match="use_pallas 0"):
         train_bench.main(["--use_pallas", "0"])
+
+
+_PARALLEL_PROBE = """
+import sys
+sys.path.insert(0, "tests")
+import paddlerobotics_torch.parallel.dryrun
+import paddlerobotics_torch.parallel.launch
+import paddlerobotics_torch.parallel.sharding
+import torch_dist_workers
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "paddlerobotics_tpu"))
+print(bad)
+"""
+
+
+def test_parallel_and_its_rank_programs_import_no_jax():
+    # the ranks re-import these modules in fresh processes
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.fixture
+def cpu_mesh(tmp_path):
+    """A 1×1 mesh over a one-rank gloo group in this process."""
+    import torch.distributed as dist
+
+    from paddlerobotics_torch.parallel import sharding
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield sharding.make_mesh(1, 1, device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["ETGRLTrainer", "AttentionTrainer"])
+def test_mesh_entry_point_needs_a_card(name, cpu_mesh):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    make = {"ETGRLTrainer": lambda **kw: ETGRLTrainer(
+        QuadrupedConfig(), num_envs=8, outdir=_OUTDIR, **kw),
+        "AttentionTrainer": lambda **kw: AttentionTrainer(_SMALL_CTRL,
+                                                          **kw)}[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(mesh=cpu_mesh)
+    obj = make(mesh=cpu_mesh, device="cpu")
+    assert obj.device.type == "cpu" and obj.mesh is cpu_mesh
+
+
+@pytest.mark.parametrize("name", ["dryrun_multichip", "spawn"])
+def test_parallel_entry_point_needs_a_card(name, cpu_mesh):
+    """The mesh sweep and the rank launcher run on the cards (NCCL) unless
+    asked for the CPU: inside a gloo group the sweep without ``device``
+    raises instead of training on the CPU, and ``spawn`` starts no gloo
+    ranks by default."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from paddlerobotics_torch.parallel import dryrun, launch
+
+    call = {"dryrun_multichip": dryrun.dryrun_multichip,
+            "spawn": lambda: launch.spawn(print, 2)}[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    assert launch.backend_for("cpu") == "gloo"
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "2x1"], ["--mesh", "1"],
+                                  ["--distributed", "1"]])
+def test_mesh_cli_needs_the_cards_and_does_not_fall_back(argv, tmp_path):
+    """A mesh on the card needs as many cards as ranks: without them the
+    CLIs raise (no gloo, no CPU, no run without a mesh)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from paddlerobotics_torch.cli import train_quadruped
+    from paddlerobotics_torch.parallel import launch
+
+    main = train_attention.main if argv[0] == "--distributed" else \
+        train_quadruped.main
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(argv + ["--outdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.spawn(print, 2, device="cuda")

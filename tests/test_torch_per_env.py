@@ -333,6 +333,16 @@ def test_reset_without_draws_raises():
         random=tconfig.RandomConfig(random_dynamics=True)))
     with pytest.raises(ValueError, match="draws"):
         tenv.reset()
+    # pushes: every episode needs a fresh salt (the JAX env draws one on
+    # each reset), through reset and through the autoreset
+    tenv = make_env("Quadrupedal", device="cpu", config=tconfig.QuadrupedConfig(
+        random=tconfig.RandomConfig(random_force=True)))
+    with pytest.raises(ValueError, match="random_force"):
+        tenv.reset()
+    g = torch.Generator().manual_seed(1)
+    st, _ = tenv.reset(draws=tenv.sample_draws(g))
+    with pytest.raises(ValueError, match="random_force"):
+        tenv.step_autoreset(st, torch.zeros(12), donef=True)
     tenv = make_env("Quadrupedal", device="cpu", noise=True)
     with pytest.raises(ValueError, match="obs_noise"):
         tenv.reset()

@@ -207,3 +207,21 @@ def test_scene_sensor_end_to_end(det):
         assert np.min(np.abs(top - 0.25)) > SCORE_SEP
     inst = det["scene"].get_instances_with_feats(_t(det["imgs"]))
     _assert_instances(inst, det["inst"])
+
+
+def test_feature_map_and_instances_match_jax(det):
+    """``SceneSensor.get_feature_map`` and ``get_instances`` (JAX
+    scene.py:97-103) on the converted weights."""
+    jscene, imgs = JScene(input_size=SIZE), jnp.asarray(det["imgs"])
+    fm_j = jax.jit(jscene.get_feature_map)(det["var"], imgs)
+    boxes_j, scores_j, valid_j = jax.jit(jscene.get_instances)(det["var"],
+                                                               imgs)
+    fm_t = det["scene"].get_feature_map(_t(det["imgs"]))
+    np.testing.assert_allclose(fm_t.numpy(), np.asarray(fm_j), atol=NET_ATOL,
+                               rtol=NET_RTOL)
+    boxes_t, scores_t, valid_t = det["scene"].get_instances(_t(det["imgs"]))
+    np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
+    np.testing.assert_allclose(boxes_t.numpy(), np.asarray(boxes_j),
+                               atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(scores_t.numpy(), np.asarray(scores_j),
+                               atol=SCORE_TOL)

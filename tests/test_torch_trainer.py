@@ -242,8 +242,10 @@ def test_cli_runs_on_the_cpu_and_refuses_a_mesh(tmp_path, capsys):
             str(tmp_path), "--suffix", "cli"]
     train_quadruped.main(argv)
     assert "train/critic_loss" in _tags(str(tmp_path / "cli"))
-    with pytest.raises(SystemExit, match="mesh"):
-        train_quadruped.main(argv + ["--mesh", "2x1"])
+    # a CPU mesh runs as gloo ranks (tests/test_torch_parallel.py), given
+    # as NxM: "every card" means nothing there
+    with pytest.raises(SystemExit, match="mesh 1 on the CPU"):
+        train_quadruped.main(argv + ["--mesh", "1"])
     args = train_quadruped.build_parser().parse_args(
         ["--device", "cuda", "--use_pallas", "0"])
     with pytest.raises(SystemExit, match="use_pallas"):
