@@ -8,6 +8,15 @@ to 0 just before it and read just after:
 
 - physics: the batched A1 env and the deterministic-policy rollout
   ``train.etg_rl.evaluate`` at B=4096 (one physics launch per step);
+- the bench command and the profiler: ``cli.env_bench``'s timed rollout at
+  B=4096 in both regimes (no DR, and DR with the 40-row ring) in process
+  and ``python -m paddlerobotics_torch.cli.env_bench --regime both`` as a
+  subprocess; one step of ``graft_entry.entry()`` at B=256 against the
+  plain physics (one launch); ``utils.profiler``'s NaN checks on a clean
+  B=4096 env step (bit-equal with them off) and on faults planted inside
+  the physics and attention kernels and in a backward pass, each raised
+  with the checks on and silent with them off; ``trace`` and
+  ``annotate`` around 3 env steps;
 - training: ``ETGRLTrainer.train`` at B=4096, K=4 and the default widths
   (2×256 SAC, batch 256, 1M-row replay, SimpleGA popsize 40 on 320 ES
   envs), depth cut, through a cold chunk, warm chunks, an eval window with
@@ -434,6 +443,7 @@ def main() -> int:
     from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
     from paddlerobotics_torch.etg import fit
     from paddlerobotics_torch.algos.networks import Actor
+    from paddlerobotics_torch.cli import env_bench
     from paddlerobotics_torch.ops import attention, lap, physics_step
     from paddlerobotics_torch.ops.build import build_native_runtime
     from paddlerobotics_torch.sim import sbatch, terrain
@@ -630,25 +640,37 @@ def main() -> int:
     if d_ret > 1e-3 * max(1.0, abs(r_p[0].item())) or d_len > 0.5:
         raise RuntimeError("kernel rollout disagrees with the plain rollout")
 
-    # autoreset rollout with zero actions, as bench.py does
-    state, obs = env.reset(gen)
+    # autoreset rollout with zero actions, as bench.py does: the bench
+    # command's own function (cli/env_bench), 100 warm-up steps, then 4×100
+    nodr, bench_launches, _ = launched(lambda: env_bench.bench_env(
+        "no_dr", B, device=dev))
+    state, obs = nodr["final"][:2]
     zeros = torch.zeros((B, 12), device=dev)
-    for _ in range(10):
-        state, obs, rew, done, _ = env.step(state, zeros)
-    start_ev = torch.cuda.Event(enable_timing=True)
-    end_ev = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start_ev.record()
-    for _ in range(4):
-        for _ in range(100):
-            state, obs, rew, done, _ = env.step(state, zeros)
-    end_ev.record()
-    torch.cuda.synchronize()
-    sec = start_ev.elapsed_time(end_ev) / 1e3
-    sps = B * 400 / sec
-    log("env_step_bench", a1_env_steps_per_sec_4096envs=round(sps, 1),
-        ms_per_step=round(sec / 400 * 1e3, 4), card=repr(card),
-        obs_finite=bool(torch.isfinite(obs).all().item()))
+    n_bench = nodr["steps"] * nodr["reps"]
+    log("env_step_bench", a1_env_steps_per_sec_per_chip_4096envs=round(
+        nodr["env_steps_per_s"], 1),
+        host_ms_per_step=round(nodr["seconds"] / n_bench * 1e3, 4),
+        event_ms_per_step=round(nodr["event_ms"] / n_bench, 4),
+        ring_len=nodr["ring_len"], kernel_launches=bench_launches,
+        card=repr(card), obs_finite=bool(torch.isfinite(obs).all().item()))
+    if bench_launches != n_bench + nodr["steps"]:
+        raise RuntimeError(f"{bench_launches} physics launches for "
+                           f"{n_bench + nodr['steps']} control steps")
+    # the same under DR: per-env dynamics, the long substep ring
+    dr, dr_launches, _ = launched(lambda: env_bench.bench_env(
+        "dr_long_ring", B, device=dev))
+    dr_over_nodr = dr["env_steps_per_s"] / nodr["env_steps_per_s"]
+    log("env_bench_dr", B=B, env_steps_per_s=round(dr["env_steps_per_s"], 1),
+        host_ms_per_step=round(dr["seconds"] / n_bench * 1e3, 4),
+        event_ms_per_step=round(dr["event_ms"] / n_bench, 4),
+        ring_len=dr["ring_len"], kernel_launches=dr_launches,
+        dr_over_nodr=round(dr_over_nodr, 4),
+        obs_finite=bool(torch.isfinite(dr["final"][1]).all().item()),
+        card=repr(card))
+    if dr_launches != n_bench + dr["steps"] or dr["ring_len"] != 40 or \
+            not torch.isfinite(dr["final"][1]).all():
+        raise RuntimeError("the DR long-ring bench: wrong launches, ring or "
+                           "non-finite observation")
 
     # where an env step's time goes on the card (torch.profiler)
     holder = [state]
@@ -760,6 +782,8 @@ def main() -> int:
         event_ms_per_call=round(ev[0].elapsed_time(ev[1]) / HOST_CALLS, 5),
         card=repr(card))
 
+    entry_launches = bench_entry_phases(dev, card, env,
+                                        nodr["env_steps_per_s"])
     train_launches = train_phases(dev, card)
     mesh_launches = mesh_train_phase(dev, card)
     stack_launches = stack_phases(dev, card)
@@ -779,6 +803,9 @@ def main() -> int:
         "device_ms": kernel_dev,
         "plain_device_ms": plain_dev,
         "library_device_ms": None,
+        "env_step_bench_launches": bench_launches,
+        "env_bench_dr_launches": dr_launches,
+        **entry_launches,
         "train_launches": train_launches,
         "mesh_train_launches": mesh_launches,
         **stack_launches,
@@ -1186,6 +1213,193 @@ def mesh_train_phase(dev, card) -> int:
                            "without a mesh, or launched the physics kernel "
                            f"{a['launches']} times for {steps} control steps")
     return a["launches"]
+
+
+def bench_entry_phases(dev, card, env, nodr_rate: float) -> dict:
+    """The bench command, the flagship step and the profiler on the card:
+    ``cli.env_bench --regime both`` as a subprocess, one step of
+    ``graft_entry.entry()`` against the plain physics, the NaN checks on a
+    clean env step and on faults planted inside both kernels, and a trace
+    of annotated env steps. Returns the physics launches of each."""
+    import threading
+
+    from paddlerobotics_torch import graft_entry
+    from paddlerobotics_torch.ops import attention, physics_step
+    from paddlerobotics_torch.sim import sbatch
+    from paddlerobotics_torch.utils import profiler
+
+    # --- the bench command -------------------------------------------------
+    t = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m",
+                          "paddlerobotics_torch.cli.env_bench",
+                          "--regime", "both"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=900)
+    seconds = time.perf_counter() - t
+    if run.returncode != 0:
+        raise RuntimeError(f"cli.env_bench exited {run.returncode}: "
+                           f"{run.stderr[-2000:]}")
+    lines = [json.loads(x) for x in run.stdout.splitlines()
+             if x.startswith("{")]
+    no_dr, dr, ratio, metric = lines
+    name, limit = [x.strip() for x in card.rsplit(",", 1)]
+    ok = (len(lines) == 4 and no_dr["ring_len"] == 2 and
+          dr["ring_len"] == 40 and metric["metric"] ==
+          "a1_env_steps_per_sec_per_chip_4096envs" and
+          metric["value"] == no_dr["env_steps_per_s"] > 0 and
+          metric["device"] == {"name": name, "power_limit": limit} and
+          "vs_baseline" not in metric and ratio["dr_over_nodr"] > 0)
+    log("env_bench_cli", seconds=round(seconds, 1),
+        lines=json.dumps(lines), in_process_no_dr=round(nodr_rate, 1),
+        result="pass" if ok else "FAIL")
+    if not ok:
+        raise RuntimeError("cli.env_bench printed unexpected lines")
+
+    # --- the flagship step ---------------------------------------------------
+    fn, (st, actor, obs) = graft_entry.entry(256)
+
+    def entry_step():
+        rng = torch.Generator(device=dev)
+        rng.set_state(st.rng.get_state())
+        return fn(st.replace(rng=rng), actor, obs)
+
+    out_k, entry_launches, _ = launched(entry_step)
+    with plain_physics():
+        out_p = entry_step()
+    torch.cuda.synchronize()
+    equal = [torch.equal(a, b) for a, b in zip(out_k, out_p)]
+    log("graft_entry", B=256, shapes=json.dumps([list(o.shape)
+                                                  for o in out_k]),
+        kernel_launches=entry_launches, bit_equal_to_plain=json.dumps(equal),
+        finite=bool(torch.isfinite(out_k[0]).all().item()))
+    if entry_launches != 1 or not all(equal):
+        raise RuntimeError("graft_entry: not one launch, or not bit-equal "
+                           "to the plain physics")
+
+    # --- NaN checks ----------------------------------------------------------
+    zeros = torch.zeros((env.B, 12), device=dev)
+    st0, _ = env.reset(torch.Generator(device=dev).manual_seed(3))
+
+    def step(state=st0):
+        rng = torch.Generator(device=dev)
+        rng.set_state(state.rng.get_state())
+        ns, nobs, rew, done, _ = env.step(state.replace(rng=rng), zeros)
+        return [nobs, rew, done, ns.robot.obs_hist] + [
+            getattr(ns.robot.s, f) for f in ("pos", "quat", "w", "v", "q",
+                                             "qd")]
+
+    def ms_per_step(reps=5):
+        step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    ref = step()
+    off_ms = ms_per_step()
+    # a fault inside each kernel, built before the checks are on: env 0
+    # without base or leg mass (a singular articulated inertia: NaN, not
+    # inf, in that env's state), and +inf in q at a masked score (inf·0 in
+    # the kernel's masked score)
+    p = sbatch.BDynParams.default(env.B, device=dev)
+    base, leg = p.base_mass_scale.clone(), p.leg_mass_scale.clone()
+    base[0] = 0.0
+    leg[:, 0] = 0.0
+    st_bad, _ = env.reset(torch.Generator(device=dev).manual_seed(3),
+                          dyn=p._replace(base_mass_scale=base,
+                                         leg_mass_scale=leg))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn((1, 8, 200, 64), generator=gen, device=dev)
+               for _ in range(3))
+    mask = torch.ones((1, 200, 200), device=dev)
+    mask[0, 0, 100:] = 0.0
+    q[0, 0, 0, 0] = float("inf")
+    x = torch.zeros(3, device=dev, requires_grad=True)
+    threads = []
+    x.register_hook(lambda g: threads.append(threading.get_ident()))
+    (torch.sqrt(x) * 0.0).sum().backward()          # without the checks
+    raised = {}
+    physics_step.control_step.launches = 0
+    profiler.enable_nan_checks()
+    try:
+        got = step()
+        torch.cuda.synchronize()
+        on_ms = ms_per_step()
+        for name, fault in (
+                ("control_step", lambda: step(st_bad)),
+                ("flash_attention", lambda: attention.flash_attention(
+                    q, k, v, mask)),
+                ("backward", lambda: (torch.sqrt(x) * 0.0).sum().backward())):
+            try:
+                fault()
+                torch.cuda.synchronize()
+                raised[name] = None
+            except FloatingPointError as e:
+                raised[name] = str(e)
+    finally:
+        profiler.enable_nan_checks(False)
+    checked_launches = physics_step.control_step.launches
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+    # checks off: the same faults pass silently, their NaN in the outputs
+    silent_env = step(st_bad)[0]
+    with plain_physics():
+        plain_env = step(st_bad)[0]
+    with torch.no_grad():
+        silent_attn = attention.flash_attention(q, k, v, mask)
+    x.grad = None
+    (torch.sqrt(x) * 0.0).sum().backward()
+    silent = {"control_step_env0_nan": bool(silent_env[0].isnan().any()),
+              "control_step_others_finite": bool(
+                  silent_env[1:].isfinite().all()),
+              "control_step_nan_where_plain_nan": torch.equal(
+                  silent_env.isnan(), plain_env.isnan()),
+              "flash_attention_nan": bool(silent_attn.isnan().any()),
+              "backward_nan": bool(x.grad.isnan().all())}
+    ok = (bit_equal and all(silent.values()) and
+          raised["control_step"] is not None and
+          "control_step (ops/csrc/physics_step.cu)" in raised["control_step"]
+          and raised["flash_attention"] is not None and
+          "flash_attention (ops/csrc/attention.cu)" in raised[
+              "flash_attention"] and raised["backward"] is not None and
+          "aten." in raised["backward"] and not profiler.nan_checks_on)
+    log("nan_checks", B=env.B, clean_step_bit_equal=bit_equal,
+        ms_per_step_off=round(off_ms, 3), ms_per_step_on=round(on_ms, 3),
+        kernel_launches=checked_launches,
+        raised=json.dumps(raised), silent_when_off=json.dumps(silent),
+        backward_thread_is_callers=threads[0] == threading.get_ident(),
+        fault_physics="env 0 base and leg mass scale 0",
+        fault_attention="q[0,0,0,0]=+inf, mask[0,0,100:]=0",
+        result="pass" if ok else "FAIL", card=repr(card))
+    if not ok:
+        raise RuntimeError("the NaN checks missed a fault, raised on a "
+                           "clean step or changed its result")
+
+    # --- trace + annotate ----------------------------------------------------
+    holder = [st0]
+    physics_step.control_step.launches = 0
+    with profiler.trace(str(ROOT / "build" / "chip_smoke" / "trace")) as path:
+        for _ in range(3):
+            with profiler.annotate("env_step"):
+                holder[0] = env.step(holder[0], zeros)[0]
+    trace_launches = physics_step.control_step.launches
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and
+               "control_step_kernel" in e.get("name", "")]
+    ranges = [e for e in events if e.get("cat") == "user_annotation" and
+              e.get("name") == "env_step"]
+    all_kernels = [e for e in events if e.get("cat") == "kernel"]
+    log("trace", path=pathlib.Path(path).name, events=len(events),
+        physics_kernels=len(kernels), ranges=len(ranges),
+        kernels=len(all_kernels), kernel_launches=trace_launches,
+        physics_device_us=json.dumps([e.get("dur") for e in kernels]))
+    if len(kernels) != 3 or len(ranges) != 3 or trace_launches != 3:
+        raise RuntimeError("the trace does not hold 3 physics kernels and "
+                           "3 env_step ranges")
+    return {"graft_entry_launches": entry_launches,
+            "nan_checks_launches": checked_launches,
+            "trace_launches": trace_launches}
 
 
 @contextlib.contextmanager

@@ -139,6 +139,22 @@ class SAC:
         state.critic, state.target_critic, state.critic_opt = \
             self._critic_parts(self._critic(generator))
 
+    # -- inference ------------------------------------------------------------
+
+    def predict(self, actor: nn.Module, obs: torch.Tensor) -> torch.Tensor:
+        """Deterministic action = tanh(mean) (sac.py:60-63); the module
+        function ``predict``."""
+        return predict(actor, obs)
+
+    def sample(self, actor: nn.Module, obs: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Reparameterised tanh-Gaussian sample and its log prob
+        (sac.py:65-75); the module function ``sample``, drawing from
+        ``generator`` unless ``noise`` is given."""
+        return sample(actor, obs, noise=noise, generator=generator)
+
     def alpha(self, state: SACState):
         """The live temperature: exp(log_alpha) when auto-tuned or
         host-annealed (SACConfig.alpha_anneal_steps), else cfg.alpha."""

@@ -17,7 +17,9 @@ q, k and v whose pointers and strides are multiples of 16 bytes (it copies
 them with ``cp.async``). It is built at first use through ``ops/build.py``.
 ``flash_attention.launches`` counts kernel launches (plain-version calls do
 not count); a caller may reset it to 0. It refuses autograd: see its
-docstring.
+docstring. Under ``utils/profiler``'s NaN checks the wrapper checks the
+kernel's output and raises ``FloatingPointError`` naming
+``flash_attention``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import ctypes
 import pathlib
 
 import torch
+
+from paddlerobotics_torch.utils import profiler
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "attention.cu"
 NEG_INF = -1e10
@@ -174,6 +178,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("attention kernel launch failed: "
                            + _lib.prt_attn_error_string(err).decode())
     flash_attention.launches += 1
+    if profiler.nan_checks_on:
+        profiler.check_outputs("flash_attention (ops/csrc/attention.cu)",
+                               (out,))
     return out
 
 

@@ -85,7 +85,17 @@ HD float rsq(float x) {
 #endif
 }
 
-HD float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
+// max / min / clamp that return NaN when an operand is NaN, as
+// torch.maximum, torch.minimum and torch.clamp do in the plain version
+// (fmaxf / fminf return the other operand), so a NaN made inside the
+// kernel reaches its outputs as it reaches the plain version's
+HD float fmaxn(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+HD float fminn(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+HD float clampf(float x, float lo, float hi) { return fminn(fmaxn(x, lo), hi); }
 
 // ---- small algebra: every sum in the plain version's order ---------------
 
@@ -371,7 +381,7 @@ HD float terrain_h(float x, float y, const Terrain& t) {
   }
   if (MODE == TERRAIN_BALANCE_BEAM) {
     const bool over_gap = (x >= t.x0) && (x < t.x0_bl);
-    const float off = fmaxf(fabsf(y) - t.bw_half, 0.0f);
+    const float off = fmaxn(fabsf(y) - t.bw_half, 0.0f);
     const float drop = -0.5f - 2.0f * off;
     return (over_gap && off > 0.0f) ? drop : 0.0f;
   }
@@ -396,13 +406,13 @@ HD float point_contact(const float p[3], const float v[3], float radius,
   const float nx = (-dhdx) * inv_n, ny = (-dhdy) * inv_n, nz = inv_n;
   const float phi = h - (p[2] - radius);
   const float in_contact = phi > 0.0f ? 1.0f : 0.0f;
-  const float phi_c = fminf(fmaxf(phi, 0.0f) * nz, 0.04f);
+  const float phi_c = fminn(fmaxn(phi, 0.0f) * nz, 0.04f);
   const float vn = (v[0] * nx + v[1] * ny) + v[2] * nz;
-  const float fn = fmaxf(k * phi_c - (d * vn) * in_contact, 0.0f);
+  const float fn = fmaxn(k * phi_c - (d * vn) * in_contact, 0.0f);
   const float vtx = v[0] - vn * nx, vty = v[1] - vn * ny,
               vtz = v[2] - vn * nz;
   const float inv_vt = rsq(((vtx * vtx + vty * vty) + vtz * vtz) + vs2);
-  const float coef = fminf((mu * fn) * inv_vt, cap);
+  const float coef = fminn((mu * fn) * inv_vt, cap);
   const float ft = -coef;
   f[0] = fn * nx + ft * vtx;
   f[1] = fn * ny + ft * vty;

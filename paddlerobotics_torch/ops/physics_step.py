@@ -21,7 +21,9 @@ whose ``prt_control_step_host`` runs the kernel's stages env by env on
 host pointers from ``launch_args`` (the CPU tests' check of the kernel).
 
 ``control_step.launches`` counts kernel launches (plain-version calls do
-not count); a caller may reset it to 0.
+not count); a caller may reset it to 0. Under ``utils/profiler``'s NaN
+checks the wrapper checks the kernel's outputs and raises
+``FloatingPointError`` naming ``control_step``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from paddlerobotics_torch.sim import dynamics as dyn
 from paddlerobotics_torch.sim import sbatch
 from paddlerobotics_torch.sim.sbatch import (BContact, BDynParams, BQuadState,
                                              BRobot, F32, OBS_ROW)
+from paddlerobotics_torch.utils import profiler
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "physics_step.cu"
 # after ops/build.BASE_FLAGS; no FMA contraction: the plain version rounds
@@ -305,4 +308,7 @@ def _control_step_cuda(rb, action, p, cfg, h_fn, torque_mode, qd_ref,
                            + lib.prt_error_string(err).decode())
     control_step.launches += 1
     del keep
+    if profiler.nan_checks_on:
+        profiler.check_outputs("control_step (ops/csrc/physics_step.cu)",
+                               outs)
     return robot_from_outputs(rb, action, outs)

@@ -12,13 +12,13 @@ import torch
 
 import numpy as np
 
-from paddlerobotics_torch import convert
+from paddlerobotics_torch import convert, graft_entry
 from paddlerobotics_torch.algos import es, replay
 from paddlerobotics_torch.algos.bc import BC
 from paddlerobotics_torch.algos.networks import Actor
 from paddlerobotics_torch.algos.sac import SAC
 from paddlerobotics_torch.cli import (bc_train, collect_act_emb,
-                                      collect_data, dynamics_id,
+                                      collect_data, dynamics_id, env_bench,
                                       eval_matrix, export_gait,
                                       parallel_train_attn, pretrain_etg,
                                       robot_exercise, serve_grpc,
@@ -87,6 +87,28 @@ def test_port_imports_no_jax():
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 106, out.stdout
     assert bad == "[]", out.stdout
+
+
+_MODULE_PROBE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "paddlerobotics_tpu"))
+print(bad)
+"""
+
+
+@pytest.mark.parametrize("module", ["paddlerobotics_torch.cli.env_bench",
+                                    "paddlerobotics_torch.graft_entry",
+                                    "paddlerobotics_torch.utils.profiler"])
+def test_bench_entry_and_profiler_import_no_jax(module):
+    out = subprocess.run([sys.executable, "-c", _MODULE_PROBE, module],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_env_without_device_needs_a_card():
@@ -268,6 +290,11 @@ _ENTRY_POINTS = {
     "SalutationClsTree": lambda **kw: SalutationClsTree(8, **kw),
     # PrefetchLoader's tokenize
     "WindowTokenizer": lambda **kw: hri_data.WindowTokenizer(None, **kw),
+    # the example observation
+    "graft_entry.entry": lambda **kw: graft_entry.entry(2, **kw)[1][2],
+    # the bench's last observation
+    "env_bench.bench_env": lambda **kw: env_bench.bench_env(
+        "no_dr", 2, 1, 1, **kw)["final"][1],
 }
 
 
@@ -308,6 +335,8 @@ def _cli_argvs(tmp: pathlib.Path) -> dict:
         "serve_grpc": (serve_grpc.main, ["--smoke", "--steps", "1"]),
         "collect_data": (collect_data.main, ["-d", str(tmp)]),
         "serving_bench": (serving_bench.main, ["--frames", "1"]),
+        "env_bench": (env_bench.main, ["--num_envs", "2", "--steps", "1",
+                                       "--reps", "1", "--regime", "both"]),
         "robot_exercise": (robot_exercise.main, ["--steps", "1"]),
         "robot_exercise_udp": (robot_exercise.main, ["--udp", "emulator"]),
         **{f"collect_act_emb_{enc}": (collect_act_emb.main, [
@@ -321,6 +350,7 @@ def _cli_argvs(tmp: pathlib.Path) -> dict:
                                   "train_bench", "train_attention",
                                   "parallel_train_attn", "serve_grpc",
                                   "collect_data", "serving_bench",
+                                  "env_bench",
                                   "robot_exercise", "robot_exercise_udp",
                                   "collect_act_emb_bow",
                                   "collect_act_emb_ernie"])

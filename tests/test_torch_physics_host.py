@@ -180,3 +180,29 @@ def test_launch_plan_matches_the_source(host_lib):
         assert (plan["threads_per_env"], envs) == (4, 32)
         assert (plan["blocks"] - 1) * envs < n <= plan["blocks"] * envs
         assert plan["smem_bytes"] == 2 * 4 * 33 * envs * 4
+
+
+def test_a_nan_made_in_the_kernel_reaches_its_outputs(host_lib):
+    """Env 0 without base or leg mass makes NaN inside the step (a singular
+    articulated inertia). The kernel's max / min / clamp return NaN as
+    torch.clamp does, so its outputs hold NaN where the plain version's do
+    (fmaxf and fminf would clamp a NaN velocity back into range) and the
+    other envs are untouched."""
+    rb = sbatch.init_robot(B, 0.30, hist_len=2)
+    p = sbatch.BDynParams.default(B)
+    base, leg = p.base_mass_scale.clone(), p.leg_mass_scale.clone()
+    base[0] = 0.0
+    leg[:, 0] = 0.0
+    p = p._replace(base_mass_scale=base, leg_mass_scale=leg)
+    cfg, h_fn = SimConfig(), terrain.height_fn(TaskConfig())
+    act = rb.s.q.clone()
+    got = host_step(host_lib, rb, act, p, cfg, h_fn)
+    want = sbatch.control_step(rb, act, p, cfg, h_fn)
+    for f in ("pos", "quat", "w", "v", "q", "qd"):
+        g, w = getattr(got.s, f), getattr(want.s, f)
+        np.testing.assert_array_equal(g.isnan().numpy(), w.isnan().numpy(),
+                                      err_msg=f)
+        assert g[:, 0].isnan().all(), f
+        assert g[:, 1:].isfinite().all(), f
+    np.testing.assert_array_equal(got.obs_hist.isnan().numpy(),
+                                  want.obs_hist.isnan().numpy())

@@ -2,7 +2,8 @@
 JAX package's own callers are its per-env/batched bridges and its tests):
 ``BDynParams.from_leading``, ``smallalg``'s packing helpers and ``vneg``,
 ``MetricsLogger.add_scalars``, ``randomize.sample_push_force``,
-``oscillator.feature_table`` and ``reward.REWARD_CHANNELS``. ``BC.predict``
+``oscillator.feature_table``, ``reward.REWARD_CHANNELS`` and the
+``SAC.predict`` / ``SAC.sample`` methods. ``BC.predict``
 and ``SceneSensor.get_feature_map`` / ``get_instances`` are held in
 test_torch_bc.py and test_torch_perception.py beside their fixtures."""
 
@@ -13,7 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from paddlerobotics_tpu.algos.sac import SAC as JSAC
 from paddlerobotics_tpu.core.config import ETGConfig as JETGConfig
+from paddlerobotics_tpu.core.config import SACConfig as JSACConfig
 from paddlerobotics_tpu.envs import randomize as jrandomize
 from paddlerobotics_tpu.envs import reward as jreward
 from paddlerobotics_tpu.etg import oscillator as josc
@@ -21,7 +24,9 @@ from paddlerobotics_tpu.ops import smallalg as jsa
 from paddlerobotics_tpu.sim import sbatch as jsb
 from paddlerobotics_tpu.train import metrics as jmetrics
 
-from paddlerobotics_torch.core.config import ETGConfig, RewardConfig
+from paddlerobotics_torch import convert
+from paddlerobotics_torch.algos import sac as sac_mod
+from paddlerobotics_torch.core.config import ETGConfig, RewardConfig, SACConfig
 from paddlerobotics_torch.envs import randomize, reward
 from paddlerobotics_torch.etg import oscillator
 from paddlerobotics_torch.ops import smallalg as sa
@@ -105,3 +110,34 @@ def test_reward_channels_match_jax():
         torch.zeros(4, 2), torch.zeros(4, 2, dtype=torch.bool),
         torch.zeros(4, 2, dtype=torch.bool), torch.zeros(2, dtype=torch.bool))
     assert tuple(info) == reward.REWARD_CHANNELS
+
+
+def test_sac_predict_and_sample_methods_match_jax():
+    """The methods on the actor module in place of ``actor_params``; the
+    sample on JAX's own normal draw, injected as ``noise``."""
+    jsac = JSAC(49, 12, JSACConfig(hidden_dim=16))
+    params = jsac.init(jax.random.key(0)).actor_params
+    sac = sac_mod.SAC(49, 12, SACConfig(hidden_dim=16), device="cpu")
+    actor = convert.actor_from_flax(jax.tree.map(np.array, params),
+                                    device="cpu")
+    obs = np.random.default_rng(3).standard_normal((5, 49)).astype(
+        np.float32)
+    tobs = torch.as_tensor(obs)
+    with torch.no_grad():
+        got = sac.predict(actor, tobs)
+        np.testing.assert_allclose(got.numpy(), np.asarray(
+            jsac.predict(params, jnp.asarray(obs))), atol=1e-6)
+        key = jax.random.key(7)
+        ja, jlp = jsac.sample(params, jnp.asarray(obs), key)
+        noise = torch.as_tensor(np.array(jax.random.normal(key, (5, 12))))
+        ta, tlp = sac.sample(actor, tobs, noise=noise)
+        np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=1e-6)
+        np.testing.assert_allclose(tlp.numpy(), np.asarray(jlp), atol=1e-4,
+                                   rtol=1e-5)
+        # a generator draws as the module function does
+        a1, lp1 = sac.sample(actor, tobs,
+                             generator=torch.Generator().manual_seed(2))
+        a2, lp2 = sac_mod.sample(actor, tobs,
+                                 generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(a1, a2, rtol=0, atol=0)
+    torch.testing.assert_close(lp1, lp2, rtol=0, atol=0)
