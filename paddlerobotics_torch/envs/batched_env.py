@@ -25,6 +25,17 @@ generator and cut to the columns, and the per-env push hash and spawn
 selection take the global column index, so the sharded env is those columns
 of the one-process env (the generator does the whole batch's draws on every
 rank, which is cheap next to the step).
+
+Spans (``utils/profiler.annotate``; off unless ``enable_spans`` switched
+them on): construction is ``setup.env`` (the ETG fit included); each
+``step`` is a root span ``env.step`` holding, in order, ``env.command``
+(the action's transpose), ``env.etg`` (the ETG residual), ``env.command``
+(the action to the position target: filter, clamp, push, overheat gains),
+``env.physics`` (``ops/physics_step.control_step``, whose CUDA path opens
+``physics.args`` and ``physics.ring``), ``env.reward`` (reward and done
+flags), ``env.autoreset`` (with ``autoreset``; the DR draw included),
+``env.etg`` (the next residual) and ``env.observe`` (observation and info).
+They change no operation and no order of operations.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from paddlerobotics_torch.parallel import sharding
 from paddlerobotics_torch.sim import a1_model as a1
 from paddlerobotics_torch.sim import sbatch, terrain
 from paddlerobotics_torch.sim.sbatch import BDynParams, BRobot, F32
+from paddlerobotics_torch.utils import profiler
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -97,6 +109,10 @@ def _soa_ik(fx, fy, fz, l_hip):
 class BatchedQuadrupedEnv:
     def __init__(self, config: QuadrupedConfig, num_envs: int,
                  device: str | torch.device | None = None, mesh=None):
+        with profiler.annotate("setup.env"):
+            self._setup(config, num_envs, device, mesh)
+
+    def _setup(self, config, num_envs, device, mesh):
         self.cfg = config
         self.cols = sharding.columns(mesh, num_envs)
         self.B = self.cols.width
@@ -398,106 +414,118 @@ class BatchedQuadrupedEnv:
         """actions (B,12), already scaled by act_bound (train.py:147).
 
         Returns (state, obs (B,obs), reward (B,), done (B,), info)."""
+        with profiler.annotate("env.step"):
+            return self._step(state, actions, donef, autoreset)
+
+    def _step(self, state, actions, donef, autoreset):
         cfg = self.cfg
         B = self.B
         dev = self.device
         gen = state.rng
-        act = actions.T.to(F32).contiguous()        # (12,B)
-        etg_act, swing, stance, _ = self._etg_residual(
-            state.etg_w, state.etg_b, state.step_idx)
+        with profiler.annotate("env.command"):
+            act = actions.T.to(F32).contiguous()        # (12,B)
+        with profiler.annotate("env.etg"):
+            etg_act, swing, stance, _ = self._etg_residual(
+                state.etg_w, state.etg_b, state.step_idx)
 
-        filter_z = state.filter_z
-        qd_ref = tau_ff = None
-        if self.torque_mode:
-            cmd = act
-        elif self.hybrid_mode:
-            # (60,B) → per-motor (pos, kp, q̇*, kd, τ_ff); the position
-            # target is init+ETG+residual, gains/vel/ff go to the hybrid
-            # motor law (laikago_motor.py:152-166).
-            a5 = act.reshape(12, 5, -1)
-            cmd = self._q0 + etg_act + a5[:, 0]
-            cmd = torch.clamp(cmd, self._lo, self._hi)
-            qd_ref, tau_ff = a5[:, 2].contiguous(), a5[:, 4].contiguous()
-        else:
-            cmd = self._q0 + etg_act + act
-            if cfg.train.enable_action_filter:
-                # Butterworth smoothing of the position target
-                # (ActionFilterWrapper, EnvWrapper.py:287-291)
-                cmd, filter_z = af.filter_step(self._fb, self._fa, filter_z,
-                                               cmd)
-            cmd = torch.clamp(cmd, self._lo, self._hi)
-
-        dyn = state.dyn
-        if cfg.random.random_force:
-            # Sporadic pushes: ~0.26 s push every ~3.9 s, direction and
-            # magnitude a pure hash of (env, burst_index, episode_salt).
-            burst = torch.div(state.step_idx, 150, rounding_mode="floor")
-            phase = state.step_idx % 150
-            # mid-cycle window so a fresh episode is never pushed at spawn
-            active = (phase >= 75) & (phase < 85)
-            env_ix = self.cols.index(dev).to(torch.int32)
-            # Knuth multiplicative constant as signed int32
-            seed = env_ix * -1640531535 + state.push_salt
-            u_phi = terrain._hash01(seed, burst)
-            u_mag = terrain._hash01(seed ^ 0x5BF03635, burst)
-            phi = 2 * math.pi * u_phi
-            mag = u_mag * cfg.random.max_force * active.to(F32)
-            dyn = dyn._replace(external_force=torch.stack(
-                [mag * torch.cos(phi), mag * torch.sin(phi),
-                 torch.zeros(B, device=dev)]))
-
-        dyn_phys = dyn
-        if self.hybrid_mode:
-            # commanded gains drive the physics but are not persisted
-            dyn_phys = dyn._replace(
-                motor_kp=torch.clamp(a5[:, 1], min=0.0),
-                motor_kd=torch.clamp(a5[:, 3], min=0.0))
-        if cfg.sim.motor_overheat_protection:
-            # latched-off motors exert zero torque (ApplyAction:938-947)
-            on_f = state.motor_on.to(F32)
+        with profiler.annotate("env.command"):
+            filter_z = state.filter_z
+            qd_ref = tau_ff = None
             if self.torque_mode:
-                cmd = cmd * on_f
+                cmd = act
+            elif self.hybrid_mode:
+                # (60,B) → per-motor (pos, kp, q̇*, kd, τ_ff); the position
+                # target is init+ETG+residual, gains/vel/ff go to the hybrid
+                # motor law (laikago_motor.py:152-166).
+                a5 = act.reshape(12, 5, -1)
+                cmd = self._q0 + etg_act + a5[:, 0]
+                cmd = torch.clamp(cmd, self._lo, self._hi)
+                qd_ref, tau_ff = a5[:, 2].contiguous(), a5[:, 4].contiguous()
             else:
-                dyn_phys = dyn_phys._replace(
-                    motor_kp=dyn_phys.motor_kp * on_f,
-                    motor_kd=dyn_phys.motor_kd * on_f)
-                if tau_ff is not None:
-                    tau_ff = tau_ff * on_f
-        rb = physics_step.control_step(
-            state.robot, cmd, dyn_phys, cfg.sim, self.h_fn,
-            torque_mode=self.torque_mode, qd_ref=qd_ref, tau_ff=tau_ff)
-        s = rb.s
+                cmd = self._q0 + etg_act + act
+                if cfg.train.enable_action_filter:
+                    # Butterworth smoothing of the position target
+                    # (ActionFilterWrapper, EnvWrapper.py:287-291)
+                    cmd, filter_z = af.filter_step(self._fb, self._fa,
+                                                   filter_z, cmd)
+                cmd = torch.clamp(cmd, self._lo, self._hi)
 
-        dx = s.pos[0] - state.last_x
-        Rb = sbatch.quat_to_mat_cols(s.quat)
-        velx = Rb[0][0] * s.v[0] + Rb[0][1] * s.v[1] + Rb[0][2] * s.v[2]
-        up_z = Rb[2][2]
-        foot_h = (rb.contact.foot_pos[2] -
-                  self.h_fn(rb.contact.foot_pos[0], rb.contact.foot_pos[1]) -
-                  a1.FOOT_RADIUS)                   # (4,B)
-        vel_y = Rb[1][0] * s.v[0] + Rb[1][1] * s.v[1] + Rb[1][2] * s.v[2]
-        yaw = torch.atan2(Rb[1][0], Rb[0][0])
-        reward, rinfo = reward_mod.compute_reward(
-            cfg.reward, dx, velx, up_z, s.w, rb.tau, foot_h,
-            swing.to(F32), stance.to(F32),
-            rb.contact.foot_contact, rb.contact.knee_contact,
-            rb.contact.base_contact,
-            y_pos=s.pos[1], vel_y=vel_y, yaw=yaw)
+            dyn = state.dyn
+            if cfg.random.random_force:
+                # Sporadic pushes: ~0.26 s push every ~3.9 s, direction and
+                # magnitude a pure hash of (env, burst_index, episode_salt).
+                burst = torch.div(state.step_idx, 150, rounding_mode="floor")
+                phase = state.step_idx % 150
+                # mid-cycle window so a fresh episode is never pushed at spawn
+                active = (phase >= 75) & (phase < 85)
+                env_ix = self.cols.index(dev).to(torch.int32)
+                # Knuth multiplicative constant as signed int32
+                seed = env_ix * -1640531535 + state.push_salt
+                u_phi = terrain._hash01(seed, burst)
+                u_mag = terrain._hash01(seed ^ 0x5BF03635, burst)
+                phi = 2 * math.pi * u_phi
+                mag = u_mag * cfg.random.max_force * active.to(F32)
+                dyn = dyn._replace(external_force=torch.stack(
+                    [mag * torch.cos(phi), mag * torch.sin(phi),
+                     torch.zeros(B, device=dev)]))
 
-        local_h = self.h_fn(s.pos[0], s.pos[1])
-        fallen = ((up_z < 0.6) |
-                  (s.pos[2] - local_h < cfg.reward.done_height) |
-                  rb.contact.base_contact)
-        done = fallen | torch.as_tensor(donef, device=dev).expand_as(fallen)
+            dyn_phys = dyn
+            if self.hybrid_mode:
+                # commanded gains drive the physics but are not persisted
+                dyn_phys = dyn._replace(
+                    motor_kp=torch.clamp(a5[:, 1], min=0.0),
+                    motor_kd=torch.clamp(a5[:, 3], min=0.0))
+            if cfg.sim.motor_overheat_protection:
+                # latched-off motors exert zero torque (ApplyAction:938-947)
+                on_f = state.motor_on.to(F32)
+                if self.torque_mode:
+                    cmd = cmd * on_f
+                else:
+                    dyn_phys = dyn_phys._replace(
+                        motor_kp=dyn_phys.motor_kp * on_f,
+                        motor_kd=dyn_phys.motor_kd * on_f)
+                    if tau_ff is not None:
+                        tau_ff = tau_ff * on_f
+        with profiler.annotate("env.physics"):
+            rb = physics_step.control_step(
+                state.robot, cmd, dyn_phys, cfg.sim, self.h_fn,
+                torque_mode=self.torque_mode, qd_ref=qd_ref, tau_ff=tau_ff)
 
-        oh_counter, motor_on = state.oh_counter, state.motor_on
-        if cfg.sim.motor_overheat_protection:
-            # per-CONTROL-step approximation of minitaur.py:894-901
-            over = torch.abs(rb.tau) > cfg.sim.overheat_shutdown_torque
-            oh_counter = torch.where(over, oh_counter + 1.0,
-                                     torch.zeros_like(oh_counter))
-            limit = cfg.sim.overheat_shutdown_time / cfg.sim.control_dt
-            motor_on = motor_on & (oh_counter <= limit)
+        with profiler.annotate("env.reward"):
+            s = rb.s
+
+            dx = s.pos[0] - state.last_x
+            Rb = sbatch.quat_to_mat_cols(s.quat)
+            velx = Rb[0][0] * s.v[0] + Rb[0][1] * s.v[1] + Rb[0][2] * s.v[2]
+            up_z = Rb[2][2]
+            foot_h = (rb.contact.foot_pos[2] -
+                      self.h_fn(rb.contact.foot_pos[0],
+                                rb.contact.foot_pos[1]) -
+                      a1.FOOT_RADIUS)                   # (4,B)
+            vel_y = Rb[1][0] * s.v[0] + Rb[1][1] * s.v[1] + Rb[1][2] * s.v[2]
+            yaw = torch.atan2(Rb[1][0], Rb[0][0])
+            reward, rinfo = reward_mod.compute_reward(
+                cfg.reward, dx, velx, up_z, s.w, rb.tau, foot_h,
+                swing.to(F32), stance.to(F32),
+                rb.contact.foot_contact, rb.contact.knee_contact,
+                rb.contact.base_contact,
+                y_pos=s.pos[1], vel_y=vel_y, yaw=yaw)
+
+            local_h = self.h_fn(s.pos[0], s.pos[1])
+            fallen = ((up_z < 0.6) |
+                      (s.pos[2] - local_h < cfg.reward.done_height) |
+                      rb.contact.base_contact)
+            done = fallen | torch.as_tensor(
+                donef, device=dev).expand_as(fallen)
+
+            oh_counter, motor_on = state.oh_counter, state.motor_on
+            if cfg.sim.motor_overheat_protection:
+                # per-CONTROL-step approximation of minitaur.py:894-901
+                over = torch.abs(rb.tau) > cfg.sim.overheat_shutdown_torque
+                oh_counter = torch.where(over, oh_counter + 1.0,
+                                         torch.zeros_like(oh_counter))
+                limit = cfg.sim.overheat_shutdown_time / cfg.sim.control_dt
+                motor_on = motor_on & (oh_counter <= limit)
 
         new_state = BEnvState(
             robot=rb, dyn=dyn, etg_w=state.etg_w, etg_b=state.etg_b,
@@ -508,19 +536,22 @@ class BatchedQuadrupedEnv:
             dr_scale=state.dr_scale)
 
         if autoreset:
-            new_state = self._autoreset(new_state, done, gen)
+            with profiler.annotate("env.autoreset"):
+                new_state = self._autoreset(new_state, done, gen)
 
-        etg_next, _, _, v_next = self._etg_residual(
-            new_state.etg_w, new_state.etg_b, new_state.step_idx)
-        obs = self._observe(new_state, etg_next, v_next)
-        info = {
-            "torso": rinfo["torso"], "up": rinfo["up"],
-            "feet": rinfo["feet"], "tau": rinfo["tau"],
-            "stand": rinfo["stand"], "badfoot": rinfo["badfoot"],
-            "footcontact": rinfo["footcontact"], "velx": velx,
-            "rew": reward, "ETG_act": etg_act.T,
-            "success": (velx >= 0.3).to(F32),
-        }
+        with profiler.annotate("env.etg"):
+            etg_next, _, _, v_next = self._etg_residual(
+                new_state.etg_w, new_state.etg_b, new_state.step_idx)
+        with profiler.annotate("env.observe"):
+            obs = self._observe(new_state, etg_next, v_next)
+            info = {
+                "torso": rinfo["torso"], "up": rinfo["up"],
+                "feet": rinfo["feet"], "tau": rinfo["tau"],
+                "stand": rinfo["stand"], "badfoot": rinfo["badfoot"],
+                "footcontact": rinfo["footcontact"], "velx": velx,
+                "rew": reward, "ETG_act": etg_act.T,
+                "success": (velx >= 0.3).to(F32),
+            }
         return new_state, obs, reward, done, info
 
     def _autoreset(self, st: BEnvState, done: torch.Tensor,

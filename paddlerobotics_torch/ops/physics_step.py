@@ -21,9 +21,13 @@ whose ``prt_control_step_host`` runs the kernel's stages env by env on
 host pointers from ``launch_args`` (the CPU tests' check of the kernel).
 
 ``control_step.launches`` counts kernel launches (plain-version calls do
-not count); a caller may reset it to 0. Under ``utils/profiler``'s NaN
-checks the wrapper checks the kernel's outputs and raises
-``FloatingPointError`` naming ``control_step``.
+not count); a caller may reset it to 0. The CUDA path opens two
+``utils/profiler`` spans: ``physics.args`` (the inputs checked, the outputs
+allocated, the ctypes launch) and ``physics.ring`` (the new ``BRobot``, the
+ring push included); the first ``build`` of a process is ``setup.kernel``
+(a load, or an ``nvcc`` build where the checkout has none). Under
+``utils/profiler``'s NaN checks the wrapper checks the kernel's outputs and
+raises ``FloatingPointError`` naming ``control_step``.
 """
 
 from __future__ import annotations
@@ -149,17 +153,19 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib, info = kbuild.build_library("physics_step", SOURCE, NVCC_FLAGS,
-                                     {"physics_consts.h": consts_header()})
-    fn = lib.prt_control_step
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.prt_error_string.argtypes = [ctypes.c_int]
-    lib.prt_error_string.restype = ctypes.c_char_p
-    lib.prt_launch_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.prt_launch_plan.restype = None
+    with profiler.annotate("setup.kernel"):
+        lib, info = kbuild.build_library(
+            "physics_step", SOURCE, NVCC_FLAGS,
+            {"physics_consts.h": consts_header()})
+        fn = lib.prt_control_step
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.prt_error_string.argtypes = [ctypes.c_int]
+        lib.prt_error_string.restype = ctypes.c_char_p
+        lib.prt_launch_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.prt_launch_plan.restype = None
     build_info.update(info)
     _lib = lib
     return lib
@@ -297,12 +303,13 @@ def c_arrays(ptrs, floats, ints):
 def _control_step_cuda(rb, action, p, cfg, h_fn, torque_mode, qd_ref,
                        tau_ff) -> BRobot:
     lib = build()
-    ptrs, floats, ints, outs, keep = launch_args(
-        rb, action, p, cfg, h_fn, torque_mode, qd_ref, tau_ff)
-    c_p, c_f, c_i = c_arrays(ptrs, floats, ints)
-    stream = torch.cuda.current_stream(rb.s.q.device).cuda_stream
-    err = lib.prt_control_step(c_p, len(ptrs), c_f, len(floats), c_i,
-                               len(ints), stream)
+    with profiler.annotate("physics.args"):
+        ptrs, floats, ints, outs, keep = launch_args(
+            rb, action, p, cfg, h_fn, torque_mode, qd_ref, tau_ff)
+        c_p, c_f, c_i = c_arrays(ptrs, floats, ints)
+        stream = torch.cuda.current_stream(rb.s.q.device).cuda_stream
+        err = lib.prt_control_step(c_p, len(ptrs), c_f, len(floats), c_i,
+                                   len(ints), stream)
     if err != 0:
         raise RuntimeError("physics_step kernel launch failed: "
                            + lib.prt_error_string(err).decode())
@@ -311,4 +318,5 @@ def _control_step_cuda(rb, action, p, cfg, h_fn, torque_mode, qd_ref,
     if profiler.nan_checks_on:
         profiler.check_outputs("control_step (ops/csrc/physics_step.cu)",
                                outs)
-    return robot_from_outputs(rb, action, outs)
+    with profiler.annotate("physics.ring"):
+        return robot_from_outputs(rb, action, outs)
