@@ -95,7 +95,7 @@ def run(cell, seed, seconds, trace_on, device, stand_ins=()):
     window_start = pacer.start()
     ticks, window_s = harness.timed_window(
         seconds, lambda i: tick(i, keep=i in picks))
-    spans_ms = dict(spans.ms)
+    spans_ms = {k: list(v) for k, v in spans.ms.items()}
     p95 = float(np.percentile(lat_ms, 95))
     step_s = statistics.fmean(work_s)
     tr = None
@@ -107,7 +107,8 @@ def run(cell, seed, seconds, trace_on, device, stand_ins=()):
                 pacer.start(time.perf_counter() - base * dt)
             tick(base + i)
 
-        tr = trace_mod.profile(traced, t["trace_ticks"], spans, cell.name)
+        tr = trace_mod.profile(traced, t["trace_ticks"], spans, cell.name,
+                               rest=("sleep",))
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     shapes = {"num_envs": env.B, "obs_dim": env.obs_dim,

@@ -74,7 +74,7 @@ def run(cell, seed, seconds, trace_on, device, stand_ins=()):
     window_start = time.perf_counter()
     steps, window_s = harness.timed_window(
         seconds, lambda i: step(i, keep=i in picks))
-    spans_ms = dict(spans.ms)
+    spans_ms = {k: list(v) for k, v in spans.ms.items()}
     tr = None
     if trace_on:
         tr = trace_mod.profile(step, t["trace_steps"], spans, cell.name)

@@ -174,7 +174,7 @@ def run(cell, seed, seconds, trace_on, device, stand_ins=()):
     window_start = time.perf_counter()
     calls, window_s = harness.timed_window(seconds, step)
     steps = calls * chunk
-    spans_ms = dict(spans.ms)
+    spans_ms = {k: list(v) for k, v in spans.ms.items()}
     trace = None
     if trace_on:
         trace = trace_mod.profile(

@@ -22,11 +22,16 @@ def kernels_per_step(run):
 
 
 def device_idle_pct(run):
-    """Share of the traced window in which no device operation runs."""
+    """Share of the traced window's work time in which no device operation
+    runs: a paced loop's rest (its sleep) is left out of the window and of
+    the busy time; a window without rest counts whole."""
     tr = run.result.trace
-    if not tr or tr["window_s"] <= 0:
+    if not tr:
         return None
-    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
+    work = tr["window_s"] - tr["rest_s"]
+    if work <= 0:
+        return None
+    return 100.0 * (1.0 - (tr["busy_s"] - tr["rest_busy_s"]) / work)
 
 
 def roofline_pct(run, pattern: str, bound_s: float):

@@ -10,7 +10,7 @@ import json
 import pytest
 import torch
 
-from benchmark import manifest, run
+from benchmark import harness, manifest, run
 
 ROLLOUT = ["a1_etg_flat.rollout_b4096", "a1_etg_dr.rollout_b4096"]
 TRAIN = "a1_etg_flat.train_b4096_k4"
@@ -184,3 +184,34 @@ def test_train_faults_planted_in_the_reference_read_over_a_limit():
     half = rr.stand_ins["fault:half_batch"]
     assert half.values["window_loss_gap"] > half.limits["window_loss_gap"]
     assert line["correct"]
+
+
+@pytest.mark.parametrize("name", ROLLOUT + [TRAIN, DEPLOY])
+def test_a_traced_run_keeps_the_window_spans_only(name):
+    """The profiler's steps after the window add nothing to the window's
+    spans: each span has one call per step or tick timed."""
+    line, rr = run.run_cell(small(name), 2 ** 31 + 17, 0.1, True,
+                            device="cpu")
+    assert line["correct"] and rr.trace["steps"] >= 1
+    per_step = {"rollout": ("policy", "env.step"), "train": ("env.step",),
+                "deploy": ("sleep", "policy", "env.step", "obs.to_host")}
+    for span in per_step[small(name).traffic["driver"]]:
+        assert len(rr.spans[span]) == rr.steps, span
+    if name == DEPLOY:     # every reader of the cell finds its number
+        assert set(line["metrics"]) == {m["name"] for m in
+                                         small(name).per_layer}
+
+
+def test_deploy_tick_tool_splits_each_window_tick():
+    """``tools/deploy_tick`` reads every part once per window tick, the
+    parts add up to the tick, and it leaves the harness as it was."""
+    from benchmark.tools import deploy_tick
+
+    rec = deploy_tick.probe(small(DEPLOY), 2 ** 31 + 23, 0.1, device="cpu")
+    assert rec["correct"] and rec["ticks"] >= 1
+    p = rec["parts_ms"]
+    assert sum(p[k]["mean"] for k in ("wake", "policy", "env_step",
+                                      "to_host", "rest")) == \
+        pytest.approx(p["tick"]["mean"])
+    assert not harness.Spans().on
+    assert harness.Pacer.wait.__name__ == "wait"

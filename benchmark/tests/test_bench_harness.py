@@ -1,12 +1,14 @@
 """The harness's arithmetic: the open loop's tick schedule, the gaps
-compared, the drawn sample of steps and the trace's busy union and gaps."""
+compared, the drawn sample of steps, and the trace's busy union, gaps and
+work time (a paced loop's sleep left out)."""
 
 import math
+import types
 
 import pytest
 import torch
 
-from benchmark import harness, trace
+from benchmark import harness, readers, trace
 
 
 class FakeClock:
@@ -102,6 +104,9 @@ def test_trace_busy_is_the_union_and_gaps_are_named():
     r = trace.reduce(ev, {"env.step", "policy"})
     assert r["busy_s"] == pytest.approx(45e-6)   # 10-40, 70-80, 95-100
     assert r["window_s"] == pytest.approx(100e-6)
+    assert r["rest_s"] == r["rest_busy_s"] == 0.0
+    run = types.SimpleNamespace(result=types.SimpleNamespace(trace=r))
+    assert readers.device_idle_pct(run) == pytest.approx(55.0)
     assert r["kernels"] == 3
     assert dict(r["device_ops"])["k1"] == pytest.approx(30e-6)
     assert "k0" not in dict(r["device_ops"])
@@ -110,3 +115,40 @@ def test_trace_busy_is_the_union_and_gaps_are_named():
                                               "env.step"]
     assert [g for _, g in r["idle_gaps"]] == pytest.approx(
         [30e-6, 15e-6, 10e-6])
+
+
+def test_a_paced_loops_sleep_is_neither_work_nor_idle():
+    """Two ticks of 10 µs work each, 40 µs of sleep before each: the idle
+    share over the work time, and no gap in the sleep."""
+    ev = [_ev(trace.WINDOW, "user_annotation", 0.0, 100.0),
+          _ev("sleep", "user_annotation", 0.0, 40.0),
+          _ev("policy", "user_annotation", 40.0, 10.0),
+          _ev("sleep", "user_annotation", 50.0, 40.0),
+          _ev("policy", "user_annotation", 90.0, 10.0),
+          _ev("k", "kernel", 42.0, 4.0),
+          _ev("k", "kernel", 38.0, 3.0),       # 2 µs of it in the sleep
+          _ev("k", "kernel", 92.0, 4.0)]
+    r = trace.reduce(ev, {"sleep", "policy"}, rest=("sleep",))
+    assert r["busy_s"] == pytest.approx(11e-6)
+    assert r["window_s"] == pytest.approx(100e-6)
+    assert r["rest_s"] == pytest.approx(80e-6)
+    assert r["rest_busy_s"] == pytest.approx(2e-6)
+    run = types.SimpleNamespace(result=types.SimpleNamespace(trace=r))
+    assert readers.device_idle_pct(run) == pytest.approx(55.0)
+    # idle 41-42, 46-50 | 90-92, 96-100 (the sleep cut out of 46-92)
+    assert [n for n, _ in r["idle_gaps"]] == ["policy"] * 4
+    assert [g for _, g in r["idle_gaps"]] == pytest.approx(
+        [4e-6, 4e-6, 2e-6, 1e-6])
+    # a span is rest only where the driver names it so
+    whole = trace.reduce(ev, {"sleep", "policy"})
+    assert whole["rest_s"] == whole["rest_busy_s"] == 0.0
+    assert whole["idle_gaps"][0] == ("sleep", pytest.approx(46e-6))
+
+
+@pytest.mark.parametrize("ivs,cuts,want", [
+    ([(0, 10)], [], [(0, 10)]),
+    ([(0, 10)], [(2, 4), (6, 7)], [(0, 2), (4, 6), (7, 10)]),
+    ([(0, 10), (20, 30)], [(5, 25)], [(0, 5), (25, 30)]),
+    ([(3, 4)], [(0, 10)], [])])
+def test_subtract(ivs, cuts, want):
+    assert trace.subtract(ivs, cuts) == want

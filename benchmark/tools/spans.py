@@ -37,9 +37,9 @@ def run_once(cell, seed: int, seconds: float, trace: bool, spans: bool,
     captured = []
     reduce = trace_mod.reduce
 
-    def keep(events, names):
+    def keep(events, names, *rest):
         captured.append((events, set(names)))
-        return reduce(events, names)
+        return reduce(events, names, *rest)
 
     trace_mod.reduce = keep
     if prof:
