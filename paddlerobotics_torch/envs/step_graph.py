@@ -38,6 +38,10 @@ ground, 4 under DR's 40-row ring), and is dropped when a call brings
 another generator, so a caller that resets with a new generator
 recaptures instead of growing memory. The graphs of one cache share a
 memory pool, and each replay's outputs are copied out before the next.
+A dropped env's graphs are freed by the cyclic collector (the env and its
+cache refer to each other), and freeing them inside another capture
+invalidates it, so a capture collects first and holds the collector off
+until it ends.
 
 ``physics_step.control_step.launches`` advances by the capture's launches
 (one) on every replay and not on the capture itself. ``stats`` (the env's
@@ -51,6 +55,7 @@ phase spans of the captured, not executed, step).
 from __future__ import annotations
 
 import collections
+import gc
 from typing import List, Optional
 
 import torch
@@ -111,12 +116,21 @@ class _Graph:
         self.graph.register_generator_state(state.rng)
         launches = physics_step.control_step.launches
         rng_state = state.rng.get_state()
+        # A collection inside the capture can destroy the graphs of an env
+        # the caller dropped, which invalidates the capture (torch.cuda.graph
+        # collects first only when configured to): collect now, and hold
+        # the collector off until the capture ends.
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 new_state, obs, reward, done, info = env._step(
                     static_state, ins[len(leaves)], static_done, autoreset)
         finally:
+            if gc_on:
+                gc.enable()
             self.launches = physics_step.control_step.launches - launches
             physics_step.control_step.launches = launches
         if not torch.equal(state.rng.get_state(), rng_state):

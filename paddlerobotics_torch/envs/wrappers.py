@@ -1,12 +1,15 @@
-"""Batched env wrappers: temporal observation history (PyTorch port of the
-JAX package's ``envs/wrappers.py``).
+"""Batched env wrappers over ``BatchedQuadrupedEnv``, batch-first.
 
-Rebuild of the reference ObservationWrapper (deployment/envs/
-EnvWrapper.py:195-241; SENSOR_MODE['RNN'] = {time_steps, time_interval,
-mode ∈ {None, stack, GRU}} at train.py:273-277): keeps a rolling history
-of base observations and emits either a flat stack (obs_dim ×
-(time_steps+1)) or a (time_steps+1, obs_dim) sequence for the GRU actor.
-Batch-first, over ``BatchedQuadrupedEnv``.
+``ObsHistoryWrapper``: temporal observation history (PyTorch port of the
+JAX package's ``envs/wrappers.py``), a rebuild of the reference
+ObservationWrapper (deployment/envs/EnvWrapper.py:195-241;
+SENSOR_MODE['RNN'] = {time_steps, time_interval, mode ∈ {None, stack, GRU}}
+at train.py:273-277): keeps a rolling history of base observations and
+emits either a flat stack (obs_dim × (time_steps+1)) or a (time_steps+1,
+obs_dim) sequence for the GRU actor.
+
+``ChunkRunner``: the loop of a policy that plans a chunk of actions, such
+as ``algos/diffusion_policy.DiffusionPolicy`` (port-only).
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from paddlerobotics_torch.utils import profiler
 
 
 class ObsHistoryState(NamedTuple):
@@ -104,3 +109,97 @@ class ObsHistoryWrapper:
         history = torch.where(done[:, None, None], fresh, history)
         out = self._assemble(history, obs)
         return ObsHistoryState(env_state, history), out, rew, done, info
+
+
+class ChunkState(NamedTuple):
+    env_state: object
+    history: torch.Tensor    # (B, To, obs_dim), the newest last
+    plan: torch.Tensor       # (B, Tp, action_dim), the last replan's
+    held: torch.Tensor       # (B,) bool: reset since the last replan
+    k: int                   # control steps since the last replan
+
+
+def select_action(plan, held, k: int, n_obs_steps: int, bound, offset):
+    """The env action of control step ``k`` of a chunk: plan step
+    To−1+k in the env's range (× ``bound`` + ``offset``, as the SAC actor's
+    tanh output is used); a held env gets ``offset``, the policy's zero
+    residual (the ETG gait alone)."""
+    a = plan[:, n_obs_steps - 1 + k] * bound + offset
+    return torch.where(held[:, None], offset, a)
+
+
+def next_history(history, obs, done):
+    """The history after a step: shifted by the new observation; an env
+    that reset starts again from its first observation, repeated
+    (``MultiStepWrapper.stack_last_n_obs``)."""
+    shifted = torch.cat([history[:, 1:], obs[:, None]], dim=1)
+    fresh = obs[:, None].expand_as(history)
+    return torch.where(done[:, None, None], fresh, shifted)
+
+
+class ChunkRunner:
+    """A chunked policy's loop over an env: every ``Ta`` control steps
+    (the policy's ``cfg.n_action_steps``) all B envs replan together
+    (``policy.predict_action(history, noise)``, the noise a fresh Gaussian
+    (B, Tp, A) from ``noise_generator``), and each control step executes
+    the plan's next action through ``env.step(state, a, autoreset=True)``.
+
+    The history holds the last To observations (``cfg.n_obs_steps``),
+    padded by repeating an episode's first one. An env that resets inside a
+    chunk holds the zero residual until the next replan (the plan was made
+    for the episode that ended), and its history restarts from its new
+    first observation. The action keeps its shape and dtype whatever the
+    mask, so the env step keeps one graph key.
+
+    Spans: ``env.chunk`` twice a step, around the action's selection and
+    around the hold and history update after ``env.step``. Counters:
+    ``replans``, ``held_env_steps`` (env steps run on the held residual)
+    and ``mid_chunk_resets`` (resets before a chunk's last step).
+    """
+
+    def __init__(self, env, policy, noise_generator: torch.Generator):
+        cfg = policy.cfg
+        self.env, self.policy = env, policy
+        self.noise_generator = noise_generator
+        self.To, self.Tp, self.Ta = (cfg.n_obs_steps, cfg.horizon,
+                                     cfg.n_action_steps)
+        dev = env.device
+        self._bound = torch.as_tensor(env.act_bound, device=dev)
+        self._offset = torch.as_tensor(env.act_offset, device=dev)
+
+    def reset(self, generator=None) -> Tuple[ChunkState, torch.Tensor]:
+        """``env.reset(generator)``; the history is the first observation
+        repeated, and the first ``step`` replans."""
+        env_state, obs = self.env.reset(generator)
+        B = obs.shape[0]
+        history = obs[:, None].repeat(1, self.To, 1)
+        plan = obs.new_zeros((B, self.Tp, self.env.action_dim))
+        held = torch.zeros(B, dtype=torch.bool, device=obs.device)
+        return ChunkState(env_state, history, plan, held, 0), obs
+
+    def step(self, state: ChunkState, donef: torch.Tensor | bool = False):
+        """One control step (``donef`` as ``env.step`` takes it); returns
+        (state, obs, reward, done, info), the env step's with the executed
+        action as ``info["action"]``."""
+        plan, held, k = state.plan, state.held, state.k
+        if k == 0:
+            noise = torch.randn(plan.shape, generator=self.noise_generator,
+                                device=plan.device)
+            plan = self.policy.predict_action(state.history, noise)
+            held = torch.zeros_like(held)
+            profiler.count("replans")
+        with profiler.annotate("env.chunk"):
+            a = select_action(plan, held, k, self.To, self._bound,
+                              self._offset)
+        env_state, obs, reward, done, info = self.env.step(
+            state.env_state, a, donef, autoreset=True)
+        with profiler.annotate("env.chunk"):
+            history = next_history(state.history, obs, done)
+            if profiler.spans_on:
+                profiler.count("held_env_steps", held.sum())
+                if k < self.Ta - 1:
+                    profiler.count("mid_chunk_resets", done.sum())
+            held = held | done
+        info["action"] = a
+        return (ChunkState(env_state, history, plan, held,
+                           (k + 1) % self.Ta), obs, reward, done, info)

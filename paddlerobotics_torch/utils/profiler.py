@@ -25,7 +25,9 @@ range, so it lands in the Chrome trace on the profiler's clock beside the
 kernels it launched; outside one it pays for neither. While spans are on, a
 ``gc.callbacks`` hook records every collection as a span ``host.gc`` (its
 ``generation`` the one collected), inside whatever span was open. The
-parents are per thread.
+parents are per thread. Counters go with the spans: ``count(name, n)``
+adds to one only while spans are on, and ``collect_counters()`` hands them
+over and clears them.
 
 The NaN checks are a process-wide switch. Turning it on pushes a
 ``TorchDispatchMode`` onto the calling thread's mode stack; the mode checks
@@ -50,7 +52,7 @@ import os
 import socket
 import threading
 import time
-from typing import Callable, Iterable, List, NamedTuple
+from typing import Callable, Dict, Iterable, List, NamedTuple
 
 import torch
 from torch.utils._python_dispatch import (TorchDispatchMode,
@@ -117,6 +119,7 @@ class Span(NamedTuple):
 
 
 _records: List[Span] = []
+_counters: dict = {}
 _ids = itertools.count(1)
 _local = threading.local()   # .open: (id, root) of each open span, inner last
 _gc_open = None
@@ -230,6 +233,23 @@ def collect_spans() -> List[Span]:
     global _records
     out, _records = _records, []
     return out
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name`` while spans are on; nothing while
+    they are off. ``n`` may be a device tensor (a count made on the card,
+    say ``mask.sum()``): it is summed there, and read once, by
+    ``collect_counters``. Guard an ``n`` that costs work to make with
+    ``if profiler.spans_on``."""
+    if spans_on:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def collect_counters() -> Dict[str, int]:
+    """Every counter added to since the last call, as ints; clears them."""
+    global _counters
+    out, _counters = _counters, {}
+    return {k: int(v) for k, v in out.items()}
 
 
 def check_outputs(name: str, tensors: Iterable[torch.Tensor]) -> None:

@@ -14,10 +14,12 @@ with a forced ``donef``, envs that fall and autoreset, every state field,
 the observation, reward, done, info and the generator's state compared
 after every step, the capturing call included; returned tensors that no
 later step overwrites; and the launch counter and ``graph_stats`` adding
-up to the calls made.
+up to the calls made; and a capture that the cyclic collector, running
+inside it, would have invalidated by destroying a dropped env's graphs.
 """
 
 import dataclasses
+import gc
 import types
 
 import numpy as np
@@ -338,3 +340,48 @@ def test_replayed_outputs_are_fresh_and_a_new_generator_recaptures(cuda):
         state = env.step(state, a)[0]
     assert env.graph_stats["captures"] == captures + 1
     assert len(env._graphs._by_head) == 1
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dropped_envs_graphs(cuda, monkeypatch):
+    """A dropped env's graphs are freed by the cyclic collector (the env
+    and its graph cache refer to each other); a collection inside another
+    env's capture would destroy them there and invalidate that capture.
+    Here the collector is off until a capture has begun and then runs at
+    nearly every allocation inside it: a new env still captures its step
+    and replays it."""
+    real = torch.cuda.graph
+
+    class collecting(real):
+        def __enter__(self):
+            super().__enter__()
+            gc.set_threshold(1, 1, 1)
+            gc.enable()
+
+    a = torch.zeros((8, 12), device=cuda)
+
+    def dropped():
+        env = BatchedQuadrupedEnv(_config(False), 8, device=cuda)
+        st, _ = env.reset(torch.Generator(device=cuda).manual_seed(0))
+        for _ in range(3):
+            st = env.step(st, a)[0]
+        assert env.graph_stats["captures"] == 1
+
+    env = BatchedQuadrupedEnv(_config(False), 8, device=cuda)
+    old, was_on = gc.get_threshold(), gc.isenabled()
+    gc.disable()
+    try:
+        dropped()
+        monkeypatch.setattr(torch.cuda, "graph", collecting)
+        st, _ = env.reset(torch.Generator(device=cuda).manual_seed(1))
+        for _ in range(3):
+            st = env.step(st, a)[0]
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*old)
+        if was_on:
+            gc.enable()
+        else:
+            gc.disable()
+    assert env.graph_stats["captures"] == 1
+    assert env.graph_stats["replays"] == 2
