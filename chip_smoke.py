@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Builds the three hand-written kernels and the native serving runtime from
+Builds the four hand-written kernels and the native serving runtime from
 the checkout (in parallel) and holds each kernel against its plain PyTorch
 version on the card. Drives the two paths
 of the port through their entry points, each with the launch counts set
@@ -90,6 +90,16 @@ to 0 just before it and read just after:
   ResNet at 224² on the card against the CPU; the re-ID encoder through a
   frozen graph (``tf_graph``, ``reid.import_tf_consts``), 0.0 apart.
 
+- Diffusion Policy's ``Upsample1d``: the polyphase transposed-convolution
+  kernel against ``F.conv_transpose1d`` (TF32 off) at B = 1, 3, 64 and 4096
+  at the U-Net's two shapes (C=512, L=4 and C=256, L=8), then timed there at
+  B=4096 beside its bound and cuDNN, its plain version on CPU tensors
+  (``[upsample1d]``); then the published ``DiffusionPolicy`` at B=4096
+  through ``predict_action`` (20 kernel launches a DDIM-10 replan, 2 a U-Net
+  call), its ε and plan held against the same policy with
+  ``F.conv_transpose1d`` in the kernel's place within the chunk cell's
+  limits (``[diffusion_unet]``).
+
 Times each kernel by CUDA events and by its device time under
 ``torch.profiler``, beside its bounds, its launch plan, its plain version
 and, for attention, ``F.scaled_dot_product_attention`` as the library
@@ -173,6 +183,15 @@ TRAIN_PARAM_TOL = 1e-4
 # run-to-run rounding that [train_vs_plain] allows
 MESH_ACTOR_TOL = TRAIN_PARAM_TOL
 BENCH_ITERS = 2                         # timed chunks per bench schedule
+# Diffusion Policy's two transposed convolutions, (C, L) at Tp=16, and the
+# batches the kernel is held against cuDNN at (float32 sums of 2C terms in
+# another order: 1e-5 of the output's scale)
+UPSAMPLE_SHAPES = ((512, 4), (256, 8))
+UPSAMPLE_BATCHES = (1, 3, 64, 4096)
+UPSAMPLE_TOL = 1e-5
+# the published U-Net through the kernel against it through cuDNN: the
+# chunk cell's limits on one call's ε and on the DDIM-10 plan
+DIFFUSION_EPS_TOL, DIFFUSION_PLAN_TOL = 4e-4, 7e-3
 PART_REPS = 20                          # calls of a chunk's part, timed
 # the rest of the ETG-RL stack's entry points: widths kept, depth cut
 PRETRAIN_ENVS = 4080                    # 102 envs per candidate of 40
@@ -445,6 +464,7 @@ def main() -> int:
     from paddlerobotics_torch.algos.networks import Actor
     from paddlerobotics_torch.cli import env_bench
     from paddlerobotics_torch.ops import attention, lap, physics_step
+    from paddlerobotics_torch.ops import upsample1d
     from paddlerobotics_torch.ops.build import build_native_runtime
     from paddlerobotics_torch.sim import sbatch, terrain
     from paddlerobotics_torch.train import etg_rl
@@ -463,12 +483,13 @@ def main() -> int:
     with ThreadPoolExecutor(4) as ex:
         native = ex.submit(build_native_runtime)
         for f in [ex.submit(physics_step.build), ex.submit(attention.build),
-                  ex.submit(lap.build)]:
+                  ex.submit(lap.build), ex.submit(upsample1d.build)]:
             f.result()
         lib, native_info = native.result()
     for name, info in (("physics_step", physics_step.build_info),
                        ("attention", attention.build_info),
-                       ("track_match", lap.build_info)):
+                       ("track_match", lap.build_info),
+                       ("upsample1d", upsample1d.build_info)):
         regs = {instance(k): v for k, v in info["ptxas"].items()}
         log("build", kernel=name, seconds=round(info["seconds"], 1),
             ptxas=json.dumps(regs, sort_keys=True))
@@ -477,6 +498,8 @@ def main() -> int:
     log("native_build", seconds=round(native_info["seconds"], 1),
         compiler=repr(native_info["compiler"]), path=native_info["path"])
     log("build", wall_seconds=round(time.perf_counter() - t0, 1))
+    upsample_entry = upsample1d_phase(dev, card)
+    upsample_entry.update(diffusion_unet_phase(dev, card))
 
     # --- kernel against plain ------------------------------------------------
     rng = np.random.default_rng(0)
@@ -826,13 +849,229 @@ def main() -> int:
     attn_entry.update(track_launches)
     attn_entry.update(native_phases(dev, card, lib))
     kernels[0]["udp_bridge_launches"] = robot_io_phases(dev, card)
-    kernels += [attn_entry, track_entry]
+    kernels += [attn_entry, track_entry, upsample_entry]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def upsample_bound(B: int, C: int, L: int) -> dict:
+    """Least time of one ``Upsample1d`` call (ms): 2·B·C²·(4L−2)
+    operations (both phases; the zero taps at a sequence's ends, which the
+    function never needs, left out) at the FP32 peak, against x, the weight
+    and the bias read once and y written once at the HBM rate."""
+    flops = 2 * B * C * C * (4 * L - 2)
+    n_bytes = 4 * (B * C * L + 4 * C * C + C + 2 * B * C * L)
+    b_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    b_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"flops": flops, "bytes": n_bytes, "bound_bytes_ms": b_bytes,
+            "bound_ops_ms": b_ops, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+
+
+def upsample1d_phase(dev, card) -> dict:
+    """Diffusion Policy's ``Upsample1d`` kernel on the card: against
+    ``F.conv_transpose1d`` with TF32 off at both U-Net shapes and B in
+    ``UPSAMPLE_BATCHES`` (``[upsample1d_vs_conv]``, each with its launch
+    plan; the gap over the output's widest magnitude at most
+    ``UPSAMPLE_TOL``), then ms per launch at B=4096 by events and by device
+    time beside the bound and cuDNN's ``conv_transpose1d``, which is also
+    the wrapper's plain version (it runs it on CPU tensors)
+    (``[upsample1d]``), and both shapes together, as one U-Net call runs
+    them (``[upsample1d_unet]``). Returns the kernel's entry of the final
+    line."""
+    import math
+
+    import torch.nn.functional as F
+
+    from paddlerobotics_torch.ops import upsample1d as up
+    from paddlerobotics_torch.utils import profiler
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def operands(Bx, C, L):
+        x = torch.randn(Bx, C, L, generator=g, device=dev)
+        w = torch.randn(C, C, 4, generator=g, device=dev) / math.sqrt(4 * C)
+        return x, w, 0.1 * torch.randn(C, generator=g, device=dev)
+
+    def scaled_gap(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    up.upsample1d.launches = 0
+    worst, calls = 0.0, 0
+    for C, L in UPSAMPLE_SHAPES:
+        for Bx in UPSAMPLE_BATCHES:
+            x, w, b = operands(Bx, C, L)
+            want = F.conv_transpose1d(x, w, b, stride=2, padding=1)
+            gap = scaled_gap(up.upsample1d(x, w, b), want)
+            calls += 1
+            worst = max(worst, gap)
+            log("upsample1d_vs_conv", C=C, L=L, B=Bx, gap=gap,
+                plan=json.dumps(up.launch_plan(Bx, C, L)),
+                result="pass" if gap <= UPSAMPLE_TOL else "FAIL")
+    if worst > UPSAMPLE_TOL:
+        raise RuntimeError(f"upsample1d kernel off conv_transpose1d by "
+                           f"{worst:.3g} of the output's scale")
+    launches = up.upsample1d.launches
+    if launches != calls:
+        raise RuntimeError(f"{launches} upsample1d launches for {calls} calls")
+
+    ptxas = {instance(k): v for k, v in up.build_info["ptxas"].items()}
+    rows = []
+    for C, L in UPSAMPLE_SHAPES:
+        x, w, b = operands(B, C, L)
+        kern = lambda: up.upsample1d(x, w, b)
+        lib = lambda: F.conv_transpose1d(x, w, b, stride=2, padding=1)
+        ms = [timed(kern, 50, 5), timed(lib, 50, 5), timed(kern, 50, 0)]
+        kernel_ms = min(ms[0], ms[2])
+        prof = profiler.device_breakdown(kern, reps=20,
+                                         match="upsample1d_kernel")
+        kernel_dev = (prof["match_ms_per_call"]
+                      / max(prof["match_launches_per_call"], 1e-9))
+        lib_dev = profiler.device_breakdown(lib, reps=20)
+        bd = upsample_bound(B, C, L)
+        row = {"C": C, "L": L, "kernel_ms": kernel_ms,
+               "kernel_device_ms": kernel_dev, "cudnn_ms": ms[1],
+               "cudnn_device_ms": lib_dev["device_ms_per_call"],
+               "cudnn_top": lib_dev["top"], **bd}
+        rows.append(row)
+        log("upsample1d", C=C, L=L, B=B, kernel_ms=round(kernel_ms, 5),
+            kernel_device_ms_per_launch=round(kernel_dev, 5),
+            cudnn_ms=round(ms[1], 5),
+            cudnn_device_ms=round(row["cudnn_device_ms"], 5),
+            cudnn_kernels=json.dumps(lib_dev["top"]),
+            flops=bd["flops"], bytes=bd["bytes"],
+            bound_ops_ms=round(bd["bound_ops_ms"], 5),
+            bound_bytes_ms=round(bd["bound_bytes_ms"], 5),
+            bound_ms=round(bd["bound_ms"], 5), bound_by=bd["bound_by"],
+            bound_share_events=round(bd["bound_ms"] / kernel_ms, 4),
+            bound_share_device=round(bd["bound_ms"] / kernel_dev, 4),
+            cudnn_bound_share_device=round(
+                bd["bound_ms"] / row["cudnn_device_ms"], 4),
+            plan=json.dumps(up.launch_plan(B, C, L)), card=repr(card))
+    both = {k: sum(r[k] for r in rows) for k in (
+        "kernel_device_ms", "cudnn_device_ms", "flops", "bound_ms")}
+    log("upsample1d_unet", B=B, shapes=json.dumps(UPSAMPLE_SHAPES),
+        gflop=round(both["flops"] / 1e9, 3),
+        kernel_device_ms=round(both["kernel_device_ms"], 5),
+        cudnn_device_ms=round(both["cudnn_device_ms"], 5),
+        bound_ms=round(both["bound_ms"], 5),
+        fp32_peak_share=round(both["bound_ms"] / both["kernel_device_ms"], 4),
+        speedup_vs_cudnn=round(both["cudnn_device_ms"]
+                               / both["kernel_device_ms"], 3),
+        ptxas=json.dumps(ptxas, sort_keys=True),
+        max_registers=max(v.get("registers", 0) for v in ptxas.values()),
+        spill_bytes=sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                        for v in ptxas.values()),
+        card=repr(card))
+    r = rows[0]
+    return {
+        "name": "upsample1d",
+        "route": "cuda",
+        "source": "paddlerobotics_torch/ops/csrc/upsample1d.cu",
+        "replaces": None,
+        "vs_conv_launches": launches,
+        "max_abs_err": worst,
+        "ms": r["kernel_ms"],
+        "plain_ms": r["cudnn_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["cudnn_ms"],
+        "device_ms": r["kernel_device_ms"],
+        "plain_device_ms": r["cudnn_device_ms"],
+        "library_device_ms": r["cudnn_device_ms"],
+    }
+
+
+def diffusion_unet_phase(dev, card) -> dict:
+    """The path the kernel serves: the published ``DiffusionPolicy`` at
+    B=4096 (seeded default initialisation, TF32 off) through
+    ``predict_action`` with the launch count and the profiler's counters
+    set to 0 just before it: exactly 2 launches a U-Net call, 20 a DDIM-10
+    replan, ``upsample_launches`` = 2 × ``unet_calls``. One U-Net call's ε
+    and the plan are held against the same policy with
+    ``F.conv_transpose1d`` (cuDNN) in the kernel's place, gaps as the chunk
+    cell's (the widest difference over the larger of the reference's widest
+    magnitude and 1) under its limits; each replan timed by events
+    (``[diffusion_unet]``). Returns the kernel's main-path launches and
+    gaps for its entry of the final line."""
+    import torch.nn.functional as F
+
+    from paddlerobotics_torch.algos import diffusion_policy as dp
+    from paddlerobotics_torch.ops import upsample1d as up
+    from paddlerobotics_torch.utils import profiler
+
+    cfg = dp.DiffusionConfig()
+    torch.manual_seed(0)
+    pol = dp.DiffusionPolicy(cfg, device=dev)
+    pol.requires_grad_(False)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    hist = torch.randn(B, cfg.n_obs_steps, cfg.obs_dim, generator=g,
+                       device=dev)
+    noise = torch.randn(B, cfg.horizon, cfg.action_dim, generator=g,
+                        device=dev)
+    t = torch.full((B,), 90.0, device=dev)
+    replan = lambda: pol.predict_action(hist, noise)
+    with torch.no_grad():
+        pol.model(noise, t, pol.global_cond(hist))    # warm-up
+    torch.cuda.synchronize()
+
+    up.upsample1d.launches = 0
+    with torch.no_grad():
+        eps = pol.model(noise, t, pol.global_cond(hist))
+    call_launches = up.upsample1d.launches
+    profiler.collect_counters()
+    profiler.enable_spans(True)
+    try:
+        up.upsample1d.launches = 0
+        plan = replan()
+        launches = up.upsample1d.launches
+    finally:
+        profiler.enable_spans(False)
+    counts = profiler.collect_counters()
+    kernel_ms = timed(replan, 2, 0)
+
+    def conv(x, w, b):
+        return F.conv_transpose1d(x, w, b, stride=2, padding=1)
+
+    kern_fn, dp.upsample1d = dp.upsample1d, conv
+    before = up.upsample1d.launches
+    try:
+        with torch.no_grad():
+            eps_ref = pol.model(noise, t, pol.global_cond(hist))
+        plan_ref = replan()
+        cudnn_ms = timed(replan, 2, 1)
+        ref_launches = up.upsample1d.launches - before
+    finally:
+        dp.upsample1d = kern_fn
+
+    def gap(a, b):
+        return float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
+
+    eps_gap, plan_gap = gap(eps, eps_ref), gap(plan, plan_ref)
+    unet_calls = counts.get("unet_calls", 0)
+    ok = (call_launches == 2 and launches == 20 == 2 * unet_calls
+          and counts.get("upsample_launches") == launches
+          and ref_launches == 0 and eps_gap <= DIFFUSION_EPS_TOL
+          and plan_gap <= DIFFUSION_PLAN_TOL)
+    log("diffusion_unet", B=B, launches_per_unet_call=call_launches,
+        launches_per_replan=launches, unet_calls=unet_calls,
+        upsample_launches=counts.get("upsample_launches"),
+        eps_gap=eps_gap, eps_limit=DIFFUSION_EPS_TOL, plan_gap=plan_gap,
+        plan_limit=DIFFUSION_PLAN_TOL, replan_ms=round(kernel_ms, 3),
+        cudnn_replan_ms=round(cudnn_ms, 3), card=repr(card),
+        result="pass" if ok else "FAIL")
+    if not ok:
+        raise RuntimeError("the diffusion U-Net through upsample1d: wrong "
+                           "launch count or off the cuDNN path")
+    return {"launches": launches, "unet_eps_gap": eps_gap,
+            "unet_plan_gap": plan_gap, "replan_ms": kernel_ms,
+            "cudnn_replan_ms": cudnn_ms}
 
 
 def train_config():
@@ -1405,16 +1644,28 @@ def bench_entry_phases(dev, card, env, nodr_rate: float) -> dict:
 @contextlib.contextmanager
 def plain_physics():
     """Route the env's physics call to the plain version
-    (``sim/sbatch.control_step``) for the duration."""
+    (``sim/sbatch.control_step``) for the duration, and run every env step
+    eagerly: a graph captured with the kernel would replay the kernel here,
+    and one captured here would replay the plain version after."""
+    from paddlerobotics_torch.envs import step_graph
     from paddlerobotics_torch.ops import physics_step
     from paddlerobotics_torch.sim import sbatch
 
-    kern = physics_step.control_step
-    physics_step.control_step = sbatch.control_step
+    def plain(*a, **k):
+        return sbatch.control_step(*a, **k)
+
+    def eager(graphs, state, actions, donef, autoreset):
+        return graphs.env._step(state, actions, donef, autoreset)
+
+    plain.launches = 0                 # the kernel's count, read by callers
+    kern, graphed = physics_step.control_step, step_graph.StepGraphs.step
+    physics_step.control_step = plain
+    step_graph.StepGraphs.step = eager
     try:
         yield
     finally:
         physics_step.control_step = kern
+        step_graph.StepGraphs.step = graphed
 
 
 def launched(fn):

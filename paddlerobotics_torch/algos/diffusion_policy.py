@@ -19,7 +19,8 @@ global condition), and keeps its module names, so a published checkpoint's
 - down levels of two blocks each, each level's output kept as a skip,
   ``Downsample1d`` (Conv1d k3 s2) after all but the last; two middle blocks;
   up levels ``cat(x, skip.pop())`` → two blocks → ``Upsample1d``
-  (ConvTranspose1d k4 s2); the first level's skip is never popped, as
+  (ConvTranspose1d k4 s2, run as two polyphase 2-tap products by
+  ``ops/upsample1d``); the first level's skip is never popped, as
   published; the head Conv1dBlock → 1×1 conv to the action width.
 
 Sampling (``DiffusionPolicy.predict_action``): DDIM with η = 0 over
@@ -32,8 +33,10 @@ cumulative product in float32).
 Spans (``utils/profiler.annotate``): ``policy.diffusion`` around a whole
 ``predict_action``, inside it ``policy.diffusion.cond`` (the normalised
 history as the global condition), ``policy.diffusion.unet`` (each U-Net
-call) and ``policy.diffusion.ddim`` (each scheduler update); the counter
-``unet_calls``.
+call; inside it ``policy.diffusion.upsample``, each of its two
+``Upsample1d`` calls) and ``policy.diffusion.ddim`` (each scheduler
+update); the counters ``unet_calls`` and, from the kernel's wrapper,
+``upsample_launches``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import torch
 from torch import nn
 
 from paddlerobotics_torch.core.device import resolve_device
+from paddlerobotics_torch.ops.upsample1d import upsample1d
 from paddlerobotics_torch.utils import profiler
 
 
@@ -95,12 +99,18 @@ class Downsample1d(nn.Module):
 
 
 class Upsample1d(nn.Module):
+    """ConvTranspose1d(dim, dim, 4, 2, 1), kept as the ``conv`` submodule
+    (its weight and bias load by their published names), run by
+    ``ops/upsample1d.upsample1d``: the hand-written polyphase kernel on the
+    card, its plain version on the CPU."""
+
     def __init__(self, dim: int, device=None):
         super().__init__()
         self.conv = nn.ConvTranspose1d(dim, dim, 4, 2, 1, device=device)
 
     def forward(self, x):
-        return self.conv(x)
+        with profiler.annotate("policy.diffusion.upsample"):
+            return upsample1d(x, self.conv.weight, self.conv.bias)
 
 
 class Conv1dBlock(nn.Module):
