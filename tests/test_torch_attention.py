@@ -8,12 +8,10 @@ tolerance of ``tests/test_pallas_attention.py``: atol 2e-5, rtol 1e-4
 arithmetic (``ops/csrc/attention.cu``): its key tiles and their order, the
 online softmax, products in three TF32 passes and the merge of split-key
 partials. The CUDA kernel itself is held against the plain version on the
-card by ``chip_smoke.py``.
+card by ``tests/test_torch_card_kernels.py``.
 """
 
-import importlib.util
 import math
-import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,10 +27,9 @@ from paddlerobotics_tpu.ops.pallas.attention import (flash_attention as
                                                      j_reference)
 
 from paddlerobotics_torch.hri import transformer
-from paddlerobotics_torch.ops import attention
+from paddlerobotics_torch.ops import attention, kernel_time
 
 ATOL, RTOL = 2e-5, 1e-4
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _block_causal():
@@ -267,14 +264,10 @@ def test_launch_args_layout():
 
 
 def test_attn_bound_at_the_serving_shape():
-    """chip_smoke's bound of one controller call (B=1, H=8, T=S=200,
-    hd=64): 81.9 MFLOP, 1.80 MB, 0.54 µs set by bytes at 3.35 TB/s (three
-    TF32 passes at 495 TFLOP/s take 0.50 µs)."""
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    bd = chip_smoke.attn_bound(1, 8, 200, 200, 64)
+    """``ops.kernel_time``'s bound of one controller call (B=1, H=8,
+    T=S=200, hd=64): 81.9 MFLOP, 1.80 MB, 0.54 µs set by bytes at 3.35 TB/s
+    (three TF32 passes at 495 TFLOP/s take 0.50 µs)."""
+    bd = kernel_time.attn_bound(1, 8, 200, 200, 64)
     assert bd["flops"] == 81_920_000
     assert bd["bytes"] == 1_798_400
     assert bd["bound_by"] == "bytes"

@@ -32,6 +32,7 @@ from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv, BEnvState
 from paddlerobotics_torch.ops import physics_step
 from paddlerobotics_torch.sim import sbatch
 from paddlerobotics_torch.utils import profiler
+from torch_card import cuda  # noqa: F401
 
 
 def _config(dr: bool) -> QuadrupedConfig:
@@ -209,15 +210,6 @@ def test_state_leaves_round_trip():
 
 
 # --- on the card ---------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the graph captures CUDA work")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
-
 
 def _copy_state(state, rng):
     return BEnvState.from_leaves([t.clone() for t in state.leaves()],

@@ -25,6 +25,7 @@ from paddlerobotics_torch.core.config import QuadrupedConfig
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
 from paddlerobotics_torch.envs.wrappers import ChunkRunner
 from paddlerobotics_torch.utils import profiler
+from torch_card import cuda  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 B = 6
@@ -255,15 +256,6 @@ def test_reference_copies_are_one_file_importing_no_port():
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
     assert roots == {"__future__", "math", "torch"}
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the env step is graphed there only")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

@@ -11,8 +11,9 @@ part by 9e-4 within 10 steps (ROADMAP Queue C). ``_fitness`` of 4
 candidates over the same traces, and ``score`` of 3 candidates tiled up to
 the population, agree to 1e-4 relative (measured 4.2e-6; the loss divides
 the squared error by the traces' variance over 10 steps). On the card the kernel and the
-plain physics are bit-equal at full-range draws (chip_smoke ``dynid_pop``,
-``[dynamics_id_vs_plain]``). The CLI runs on the CPU on npy logs.
+plain physics are bit-equal at full-range draws
+(``tests/test_torch_card_kernels.py``, case ``dynid_pop``;
+``tests/test_torch_card_etgrl.py``, ``_fitness``). The CLI runs on the CPU on npy logs.
 """
 
 import dataclasses

@@ -6,7 +6,7 @@ in a trace as ranges around the env step's operations, and leave the step
 bit-equal.
 
 The kernel wrappers' own checks (``control_step``, ``flash_attention``)
-need the card: ``chip_smoke.py``'s ``[nan_checks]`` plants a fault inside
+need the card: ``tests/test_torch_card_kernels.py`` plants a fault inside
 each kernel."""
 
 import dataclasses

@@ -14,9 +14,7 @@ within the chunk cell's limits, two launches a U-Net call; the refusals
 on the card.
 """
 
-import importlib.util
 import math
-import pathlib
 
 import pytest
 import torch
@@ -25,10 +23,11 @@ from torch import nn
 
 import diffusion_policy_ref as ref
 from paddlerobotics_torch.algos import diffusion_policy as dp
+from paddlerobotics_torch.ops import kernel_time
 from paddlerobotics_torch.ops import upsample1d as up
 from paddlerobotics_torch.utils import profiler
+from torch_card import cuda  # noqa: F401
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPES = [(512, 4), (256, 8)]           # (C, L) of the U-Net's two levels
 PUBLISHED = dp.DiffusionConfig()
 SMALL = dp.DiffusionConfig(down_dims=(16, 32, 64), step_embed_dim=16)
@@ -86,19 +85,15 @@ def test_polyphase_split_matches_conv_transpose1d(C, L, B):
 
 @pytest.mark.parametrize("C,L", SHAPES + [(3, 4), (2, 8)])
 def test_bound_counts_the_taps_the_function_needs(C, L):
-    """``chip_smoke.upsample_bound`` counts 2·B·C²·(4L−2) FLOPs: the
+    """``ops.kernel_time.upsample_bound`` counts 2·B·C²·(4L−2) FLOPs: the
     input-output pairs that the map's Jacobian links, one FMA each (the
     zero taps at a sequence's ends left out), counted here at B=1, C=1."""
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
     jac = torch.autograd.functional.jacobian(
         lambda x: F.conv_transpose1d(x, torch.ones(1, 1, 4), stride=2,
                                      padding=1), torch.ones(1, 1, L))
     taps = int((jac != 0).sum())
     assert taps == 4 * L - 2
-    bd = chip_smoke.upsample_bound(4096, C, L)
+    bd = kernel_time.upsample_bound(4096, C, L)
     assert bd["flops"] == 2 * 4096 * C * C * taps
     if (C, L) in SHAPES:
         assert bd["bound_by"] == "operations"
@@ -197,25 +192,18 @@ def test_cpu_keeps_autograd_and_check_args_refuses():
 
 # --- on the card ---------------------------------------------------------------
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel runs there only")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 3, 64, 4096])
 @pytest.mark.parametrize("C,L", SHAPES)
 def test_kernel_matches_conv_transpose1d(cuda, C, L, B):
     """The kernel against cuDNN's transposed convolution in float32 (TF32
-    off): within 1e-5 of the output's scale."""
+    off): within 1e-5 of the output's scale, in one launch."""
     x, w, b = operands(B, C, L, seed=B, device=cuda)
     want = F.conv_transpose1d(x, w, b, stride=2, padding=1)
+    launches = up.upsample1d.launches
     got = up.upsample1d(x, w, b)
     torch.cuda.synchronize()
+    assert up.upsample1d.launches == launches + 1
     assert got.shape == want.shape
     assert scaled_gap(got, want) <= 1e-5
 
