@@ -12,10 +12,15 @@ step embedding, FiLM with a predicted scale, the observation history as the
 global condition), and keeps its module names, so a published checkpoint's
 ``model.*`` keys load by name:
 
-- ``Conv1dBlock``: Conv1d(k, pad k//2) → GroupNorm → Mish;
+- ``Conv1dBlock``: Conv1d(k, pad k//2) → GroupNorm → Mish, then the
+  epilogue its caller gives (FiLM's scale and bias, or a residual); all of
+  it through ``ops/groupnorm_mish.conv_groupnorm_mish``, which on the card
+  runs the convolution without its bias and the rest as one hand-written
+  pass;
 - ``ConditionalResidualBlock1D(in, out)``: h = block0(x); (scale, bias) =
   Linear(cond, 2·out)(Mish(cond)); h = block1(scale·h + bias); out = h +
-  res(x), res a 1×1 conv where in ≠ out;
+  res(x), res a 1×1 conv where in ≠ out (FiLM is block0's epilogue, the
+  residual block1's);
 - down levels of two blocks each, each level's output kept as a skip,
   ``Downsample1d`` (Conv1d k3 s2) after all but the last; two middle blocks;
   up levels ``cat(x, skip.pop())`` → two blocks → ``Upsample1d``
@@ -35,8 +40,8 @@ Spans (``utils/profiler.annotate``): ``policy.diffusion`` around a whole
 history as the global condition), ``policy.diffusion.unet`` (each U-Net
 call; inside it ``policy.diffusion.upsample``, each of its two
 ``Upsample1d`` calls) and ``policy.diffusion.ddim`` (each scheduler
-update); the counters ``unet_calls`` and, from the kernel's wrapper,
-``upsample_launches``.
+update); the counters ``unet_calls`` and, from the kernels' wrappers,
+``upsample_launches`` and ``norm_launches``.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 from torch import nn
 
 from paddlerobotics_torch.core.device import resolve_device
+from paddlerobotics_torch.ops.groupnorm_mish import conv_groupnorm_mish
 from paddlerobotics_torch.ops.upsample1d import upsample1d
 from paddlerobotics_torch.utils import profiler
 
@@ -114,6 +120,12 @@ class Upsample1d(nn.Module):
 
 
 class Conv1dBlock(nn.Module):
+    """Conv1d → GroupNorm → Mish, kept as the ``block`` Sequential (its
+    parameters load by their published names), run by
+    ``ops/groupnorm_mish.conv_groupnorm_mish`` with the epilogue the caller
+    gives: ``film`` (B, 2·out), or ``res`` (B, out, L) added, through the
+    1×1 convolution ``res_weight``, ``res_bias`` where given."""
+
     def __init__(self, inp: int, out: int, kernel_size: int, n_groups: int,
                  device=None):
         super().__init__()
@@ -123,8 +135,13 @@ class Conv1dBlock(nn.Module):
             nn.GroupNorm(n_groups, out, device=device),
             nn.Mish())
 
-    def forward(self, x):
-        return self.block(x)
+    def forward(self, x, film=None, res=None, res_weight=None,
+                res_bias=None):
+        conv, norm = self.block[0], self.block[1]
+        return conv_groupnorm_mish(
+            x, conv.weight, conv.bias, norm.weight, norm.bias,
+            norm.num_groups, norm.eps, conv.padding[0], film=film, res=res,
+            res_weight=res_weight, res_bias=res_bias)
 
 
 class ConditionalResidualBlock1D(nn.Module):
@@ -142,11 +159,12 @@ class ConditionalResidualBlock1D(nn.Module):
                               if inp != out else nn.Identity())
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        h = self.blocks[0](x)
-        embed = self.cond_encoder(cond).reshape(-1, 2, self.out_channels, 1)
-        h = embed[:, 0] * h + embed[:, 1]
-        h = self.blocks[1](h)
-        return h + self.residual_conv(x)
+        h = self.blocks[0](x, film=self.cond_encoder(cond))
+        rc = self.residual_conv
+        if isinstance(rc, nn.Conv1d):
+            return self.blocks[1](h, res=x, res_weight=rc.weight,
+                                  res_bias=rc.bias)
+        return self.blocks[1](h, res=x)
 
 
 class ConditionalUnet1D(nn.Module):

@@ -1,4 +1,4 @@
-"""Time the port's four hand-written kernels on the card, each alone.
+"""Time the port's five hand-written kernels on the card, each alone.
 
 For each kernel and shape it prints one JSON line: the kernel's device ms
 per launch under ``torch.profiler`` and its CUDA-event ms per wrapper call,
@@ -21,7 +21,13 @@ plan and its registers and spill bytes (``-Xptxas -v``). The shapes:
 - ``track_match`` (``ops/csrc/track_match.cu``) at the tracker's T=32,
   D=20, on the inputs of the seventh update of a seeded 5-walker clip;
 - ``upsample1d`` (``ops/csrc/upsample1d.cu``) at the Diffusion Policy
-  U-Net's two shapes (C=512, L=4 and C=256, L=8) at B=4096.
+  U-Net's two shapes (C=512, L=4 and C=256, L=8) at B=4096;
+- ``groupnorm_mish`` (``ops/csrc/groupnorm_mish.cu``) at the U-Net's five
+  ``Conv1dBlock`` shapes (C, L) at B=4096, 8 groups, with each epilogue
+  the U-Net runs there (FiLM, the residual with its 1×1 convolution's
+  bias, none), each line with ``blocks_per_unet_call``, the number of the
+  U-Net's 25 blocks it stands for; its plain version is PyTorch's chain
+  the kernel replaced (the bias add, GroupNorm, Mish, the epilogue).
 
 ``--root`` imports ``paddlerobotics_torch`` from another checkout with the
 same wrapper interfaces, so that two versions are timed on one card within
@@ -30,9 +36,10 @@ one call (run them as A, B, B, A)::
     python3 paddlerobotics_torch/ops/kernel_time.py [--root DIR]
 
 The bound helpers (``count_ops_per_env``, ``attn_bound``,
-``track_match_bound``, ``upsample_bound``) and the inputs the kernels are
-timed on (``window_mask``, ``walker_clip``, ``dynid_dynamics``) are
-importable; the card's tests hold the kernels on the same inputs.
+``track_match_bound``, ``upsample_bound``, ``groupnorm_bound``) and the
+inputs the kernels are timed on (``window_mask``, ``walker_clip``,
+``dynid_dynamics``) are importable; the card's tests hold the kernels on
+the same inputs.
 """
 
 from __future__ import annotations
@@ -149,6 +156,28 @@ def upsample_bound(B: int, C: int, L: int) -> dict:
     return {"flops": flops, **_bound(
         4 * (B * C * L + 4 * C * C + C + 2 * B * C * L), flops,
         PEAK_FP32_FLOPS)}
+
+
+def groupnorm_bound(B: int, C: int, L: int, epilogue: str) -> dict:
+    """Least time of one ``groupnorm_mish`` call (ms): the convolution's
+    output read once and the block's output written once, FiLM's (B, 2C)
+    or the residual's (B, C, L) read once, the per-channel vectors (the
+    bias, GroupNorm's scale and shift, the residual's bias) once, at the
+    HBM rate. Bytes only: a few dozen operations an element (Mish's three
+    functions among them) leave it far below the FP32 line."""
+    extra = {"none": 0, "film": 2 * B * C, "residual": B * C * L + C}
+    return _bound(4 * (2 * B * C * L + 3 * C + extra[epilogue]), 0,
+                  PEAK_FP32_FLOPS)
+
+
+# (C, L, epilogue, blocks of that kind in one call) of the published U-Net's
+# 25 Conv1dBlocks: the down levels, the middle, the up levels, the head
+UNET_NORM_BLOCKS = ((256, 16, "film", 2), (256, 16, "residual", 2),
+                    (512, 8, "film", 2), (512, 8, "residual", 2),
+                    (1024, 4, "film", 4), (1024, 4, "residual", 4),
+                    (512, 4, "film", 2), (512, 4, "residual", 2),
+                    (256, 8, "film", 2), (256, 8, "residual", 2),
+                    (256, 16, "none", 1))
 
 
 # --- inputs --------------------------------------------------------------------
@@ -542,6 +571,34 @@ def upsample_lines(dev, lines: list) -> None:
                       "spill_bytes": regs["spill_bytes"]})
 
 
+def groupnorm_lines(dev, lines: list) -> None:
+    import torch
+
+    from paddlerobotics_torch.ops import groupnorm_mish as gn
+
+    gn.build()
+    regs = registers(gn.build_info)
+    g = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    for C, L, epilogue, n in UNET_NORM_BLOCKS:
+        h = randn(B, C, L)
+        vecs = dict(bias=0.1 * randn(C), gamma=1 + 0.1 * randn(C),
+                    beta=0.1 * randn(C), groups=8, eps=1e-5)
+        extra = ({"film": randn(B, 2 * C)} if epilogue == "film" else
+                 {"res": randn(B, C, L), "res_bias": 0.1 * randn(C)}
+                 if epilogue == "residual" else {})
+        line = kernel_line(lambda: gn.groupnorm_mish(h, **vecs, **extra),
+                           lambda: gn.plain(h, **vecs, **extra), None, 50,
+                           "groupnorm_mish_kernel")
+        lines.append({"kernel": "groupnorm_mish", "B": B, "C": C, "L": L,
+                      "groups": 8, "epilogue": epilogue,
+                      "blocks_per_unet_call": n, **line,
+                      **groupnorm_bound(B, C, L, epilogue),
+                      "plan": gn.launch_plan(B, C, L, 8),
+                      "max_registers": regs["max_registers"],
+                      "spill_bytes": regs["spill_bytes"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve()
@@ -565,7 +622,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     for timer in (physics_lines, attention_lines, track_match_line,
-                  upsample_lines):
+                  upsample_lines, groupnorm_lines):
         lines: list = []
         timer(dev, lines)
         for line in lines:

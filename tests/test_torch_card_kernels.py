@@ -26,7 +26,8 @@ from scipy.optimize import linear_sum_assignment
 from paddlerobotics_torch.core.config import QuadrupedConfig, SimConfig, TaskConfig
 from paddlerobotics_torch.envs import randomize
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
-from paddlerobotics_torch.ops import attention, lap, physics_step, upsample1d
+from paddlerobotics_torch.ops import (attention, groupnorm_mish, lap,
+                                      physics_step, upsample1d)
 from paddlerobotics_torch.ops.kernel_time import dynid_dynamics, window_mask
 from paddlerobotics_torch.sim import sbatch, terrain
 from paddlerobotics_torch.utils import profiler
@@ -58,9 +59,10 @@ def es_batch(ecfg) -> int:
     return max(ecfg.popsize, ecfg.es_num_envs // ecfg.popsize * ecfg.popsize)
 
 
-@pytest.mark.parametrize("kernel", [physics_step, attention, lap, upsample1d],
+@pytest.mark.parametrize("kernel", [physics_step, attention, lap, upsample1d,
+                                    groupnorm_mish],
                          ids=["physics_step", "attention", "track_match",
-                              "upsample1d"])
+                              "upsample1d", "groupnorm_mish"])
 def test_build_reports_registers_and_spills(cuda, kernel):
     kernel.build()
     assert kernel.build_info["ptxas"]
