@@ -10,6 +10,9 @@ obs_dim) sequence for the GRU actor.
 
 ``ChunkRunner``: the loop of a policy that plans a chunk of actions, such
 as ``algos/diffusion_policy.DiffusionPolicy`` (port-only).
+
+``PlanRunner``: the loop of a planner that plans at every control step,
+``algos/tdmpc2.TDMPC2Planner`` (port-only).
 """
 
 from __future__ import annotations
@@ -203,3 +206,62 @@ class ChunkRunner:
         info["action"] = a
         return (ChunkState(env_state, history, plan, held,
                            (k + 1) % self.Ta), obs, reward, done, info)
+
+
+class PlanState(NamedTuple):
+    env_state: object
+    obs: torch.Tensor        # (B, obs_dim): what the next plan reads
+    mean: torch.Tensor       # (B, H, action_dim): the last plan's mean
+    t0: torch.Tensor         # (B,) bool: the next step is an episode's first
+
+
+class PlanRunner:
+    """A planner's loop over an env: every control step all B envs plan
+    together (``planner.plan(obs, t0, mean, noise)``, the noise one
+    ``planner.draw_noise`` from ``noise_generator``), and the planned
+    action, in [-1, 1], runs through ``env.step(state, a · act_bound +
+    act_offset, autoreset=True)``, the same call and graph key as the
+    other policies' loops.
+
+    The runner keeps each env's warm-start mean (the planner shifts it by
+    one at the next plan) and its ``t0``: true from the reset and after an
+    env's autoreset, so that its next plan starts cold, as the published
+    agent's first step of an episode does.
+
+    Span: ``env.plan`` around the reset mask's update after ``env.step``.
+    Counter: ``planner_resets`` (envs whose next plan starts cold after an
+    autoreset).
+    """
+
+    def __init__(self, env, planner, noise_generator: torch.Generator):
+        self.env, self.planner = env, planner
+        self.noise_generator = noise_generator
+        dev = env.device
+        self._bound = torch.as_tensor(env.act_bound, device=dev)
+        self._offset = torch.as_tensor(env.act_offset, device=dev)
+
+    def reset(self, generator=None) -> Tuple[PlanState, torch.Tensor]:
+        """``env.reset(generator)``; every env's first plan starts cold."""
+        env_state, obs = self.env.reset(generator)
+        B = obs.shape[0]
+        c = self.planner.cfg
+        mean = obs.new_zeros((B, c.horizon, c.action_dim))
+        t0 = torch.ones(B, dtype=torch.bool, device=obs.device)
+        return PlanState(env_state, obs, mean, t0), obs
+
+    def step(self, state: PlanState, donef: torch.Tensor | bool = False):
+        """One control step (``donef`` as ``env.step`` takes it); returns
+        (state, obs, reward, done, info), the env step's with the executed
+        action as ``info["action"]``."""
+        noise = self.planner.draw_noise(state.obs.shape[0],
+                                        self.noise_generator)
+        a, mean = self.planner.plan(state.obs, state.t0, state.mean, noise)
+        action = a * self._bound + self._offset
+        env_state, obs, reward, done, info = self.env.step(
+            state.env_state, action, donef, autoreset=True)
+        with profiler.annotate("env.plan"):
+            t0 = done.clone()
+            if profiler.spans_on:
+                profiler.count("planner_resets", done.sum())
+        info["action"] = action
+        return PlanState(env_state, obs, mean, t0), obs, reward, done, info

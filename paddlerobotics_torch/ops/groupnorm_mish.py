@@ -35,6 +35,21 @@ to the profiler's ``norm_launches`` counter while spans are on. On the
 card it refuses autograd: the kernel has no backward. Under
 ``utils/profiler``'s NaN checks the wrapper checks the kernel's output and
 raises ``FloatingPointError`` naming ``groupnorm_mish``.
+
+The row path is the same pass at one group of length 1, where GroupNorm is
+LayerNorm: TD-MPC2's ``NormedLinear`` tail (``algos/tdmpc2.py``).
+``linear_norm_act(x, weight, bias, gamma, beta, eps, act)`` computes
+``act(LayerNorm(F.linear(x, weight, bias)))``, ``act`` Mish or SimNorm (a
+softmax over each group of ``dim`` consecutive features), and
+``heads_linear_norm_act`` the same for an ensemble's stacked weights
+(heads, C, K), on one input shared by the heads or one input a head. On
+CPU tensors both run the published composition (``F.linear`` with its bias,
+``F.layer_norm``, ``F.mish`` or SimNorm); on the card the GEMM runs without
+its bias (one ``mm`` over the stacked weights for a shared input, a
+``bmm`` otherwise) and ``row_norm``, whose kernel adds the bias per element
+and takes each row's head from its index, one launch for every head.
+``row_norm`` launches count in ``groupnorm_mish.launches`` and
+``norm_launches`` as the U-Net's do.
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ from paddlerobotics_torch.utils import profiler
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "groupnorm_mish.cu"
 MAX_GROUP_FLOATS = 512
+ACTS = {"mish": 0, "simnorm": 1}    # the source's Act
 
 _lib = None
 _launch = None                      # prt_groupnorm_mish, argtypes bound once
@@ -72,6 +88,13 @@ def build() -> ctypes.CDLL:
     lib.prt_groupnorm_mish_plan.argtypes = [ctypes.c_longlong] * 4 + [
         ctypes.c_void_p]
     lib.prt_groupnorm_mish_plan.restype = ctypes.c_int
+    lib.prt_row_norm.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong] * 4 + [ctypes.c_double, ctypes.c_int,
+                                  ctypes.c_longlong, ctypes.c_void_p]
+    lib.prt_row_norm.restype = ctypes.c_int
+    lib.prt_row_norm_plan.argtypes = [ctypes.c_longlong] * 2 + [
+        ctypes.c_void_p]
+    lib.prt_row_norm_plan.restype = ctypes.c_int
     build_info.update(info)
     _lib, _launch = lib, fn
     return lib
@@ -211,3 +234,156 @@ def conv_groupnorm_mish(x, weight, bias, gamma, beta, groups: int,
         res = F.conv1d(res.contiguous(), res_weight, None)
     return groupnorm_mish(h, bias, gamma, beta, groups, eps, film, res,
                           res_bias)
+
+
+# --- the row path: LayerNorm tails of linear layers --------------------------
+
+def simnorm(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """TD-MPC2's SimNorm: a softmax over each group of ``dim`` consecutive
+    features."""
+    shp = x.shape
+    return F.softmax(x.view(*shp[:-1], -1, dim), dim=-1).view(shp)
+
+
+def _act(x, act: str, dim: int):
+    return F.mish(x) if act == "mish" else simnorm(x, dim)
+
+
+def row_launch_plan(rows: int, C: int) -> dict:
+    """The launch ``row_norm`` makes for ``rows`` rows of C (needs the
+    card)."""
+    lib = build()
+    out = (ctypes.c_longlong * 4)()
+    err = lib.prt_row_norm_plan(rows, C, out)
+    if err != 0:
+        raise RuntimeError("row_norm launch plan: "
+                           + lib.prt_groupnorm_mish_error_string(err).decode())
+    return dict(zip(("blocks", "threads", "rows_per_block",
+                     "floats_per_lane"), out))
+
+
+def row_plain(h, bias, gamma, beta, eps: float, act: str = "mish",
+              dim: int = 8, head_div: int = 1) -> torch.Tensor:
+    """The row kernel's function in PyTorch operations: each row of h
+    (R, C) plus its head's bias, ``F.layer_norm`` with the head's scale and
+    shift, then Mish or SimNorm; the parameters are (C,) or (heads, C), row
+    r taking head (r // head_div) % heads."""
+    C = h.shape[-1]
+    if bias.dim() == 1:
+        return _act(F.layer_norm(h + bias, (C,), gamma, beta, eps), act, dim)
+    heads = bias.shape[0]
+    x = h.reshape(-1, heads, head_div, C)
+    return torch.stack([
+        _act(F.layer_norm(x[:, k] + bias[k], (C,), gamma[k], beta[k], eps),
+             act, dim) for k in range(heads)], dim=1).reshape(h.shape)
+
+
+def check_rows(h, bias, gamma, beta, act: str, dim: int,
+               head_div: int) -> None:
+    """Raise on what the row kernel does not take."""
+    if act not in ACTS:
+        raise ValueError(f"row_norm: act {act!r}, expected one of "
+                         f"{sorted(ACTS)}")
+    if not isinstance(h, torch.Tensor) or h.dim() != 2:
+        raise ValueError(f"h: expected a (rows, C) tensor, got "
+                         f"{getattr(h, 'shape', type(h))}")
+    R, C = h.shape
+    pshape = tuple(getattr(bias, "shape", ()))
+    if pshape != (C,) and not (len(pshape) == 2 and pshape[1] == C):
+        raise ValueError(f"bias: shape {pshape}, expected (C,) or "
+                         f"(heads, C) with C = {C}")
+    heads = pshape[0] if len(pshape) == 2 else 1
+    for name, t in (("h", h), ("bias", bias), ("gamma", gamma),
+                    ("beta", beta)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: not a tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
+        if t.device != h.device:
+            raise ValueError(f"{name}: on {t.device}, expected {h.device}")
+        if name != "h" and tuple(t.shape) != pshape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{pshape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: pointer not 16-byte aligned")
+    if C % 4 or C > MAX_GROUP_FLOATS:
+        raise ValueError(f"row_norm: rows of {C} floats; the kernel takes "
+                         f"multiples of 4 up to {MAX_GROUP_FLOATS}")
+    if head_div <= 0 or R % (heads * head_div):
+        raise ValueError(f"row_norm: {R} rows in blocks of {heads} heads "
+                         f"x {head_div}")
+    if act == "simnorm" and (dim not in (4, 8, 16, 32, 64, 128) or C % dim):
+        raise ValueError(f"row_norm: SimNorm groups of {dim} over {C}")
+
+
+def row_norm(h, bias, gamma, beta, eps: float, act: str = "mish",
+             dim: int = 8, head_div: int = 1) -> torch.Tensor:
+    """``row_plain``'s function; the kernel for CUDA tensors, ``row_plain``
+    for CPU tensors. As ``groupnorm_mish``, no backward on the card."""
+    dev = h.device
+    if dev.type == "cpu":
+        return row_plain(h, bias, gamma, beta, eps, act, dim, head_div)
+    if dev.type != "cuda":
+        raise ValueError(f"row_norm: unsupported device {dev}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h, bias, gamma, beta)):
+        raise RuntimeError(
+            "row_norm has no backward: call it under torch.no_grad()")
+    check_rows(h, bias, gamma, beta, act, dim, head_div)
+    if _launch is None:
+        build()
+    R, C = h.shape
+    y = torch.empty_like(h)
+    heads = bias.shape[0] if bias.dim() == 2 else 1
+    err = _lib.prt_row_norm(h.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
+                            beta.data_ptr(), y.data_ptr(), R, C, heads,
+                            head_div, eps, ACTS[act], dim,
+                            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("row_norm kernel launch failed: "
+                           + _lib.prt_groupnorm_mish_error_string(err)
+                           .decode())
+    groupnorm_mish.launches += 1
+    profiler.count("norm_launches")
+    if profiler.nan_checks_on:
+        profiler.check_outputs("row_norm (ops/csrc/groupnorm_mish.cu)", (y,))
+    return y
+
+
+def linear_norm_act(x, weight, bias, gamma, beta, eps: float,
+                    act: str = "mish", dim: int = 8) -> torch.Tensor:
+    """``act(LayerNorm(F.linear(x, weight, bias)))`` for x (..., K): on the
+    CPU the published composition, on the card a bias-less GEMM and the
+    row kernel."""
+    if x.device.type == "cpu":
+        y = F.linear(x, weight, bias)
+        return _act(F.layer_norm(y, y.shape[-1:], gamma, beta, eps), act, dim)
+    h = torch.mm(x.reshape(-1, x.shape[-1]), weight.t())
+    return row_norm(h, bias, gamma, beta, eps, act, dim).view(
+        *x.shape[:-1], -1)
+
+
+def heads_linear_norm_act(x, weight, bias, gamma, beta, eps: float,
+                          act: str = "mish", dim: int = 8) -> torch.Tensor:
+    """An ensemble's layer: for each head k, ``act(LayerNorm(F.linear(x_k,
+    weight[k], bias[k])))`` with weight (H, C, K) and bias, gamma, beta
+    (H, C); x (N, K) shared by the heads or (H, N, K). Returns (H, N, C):
+    on the CPU the heads one after another; on the card one GEMM over the
+    stacked weights (a shared x; the result a view of (N, H, C)) or one
+    batched GEMM, then one launch of the row kernel for every head."""
+    H, C, K = weight.shape
+    shared = x.dim() == 2
+    if x.device.type == "cpu":
+        return torch.stack([linear_norm_act(x if shared else x[k], weight[k],
+                                            bias[k], gamma[k], beta[k], eps,
+                                            act, dim) for k in range(H)])
+    if shared:
+        h = torch.mm(x, weight.reshape(H * C, K).t())      # (N, H * C)
+        y = row_norm(h.view(-1, C), bias, gamma, beta, eps, act, dim)
+        return y.view(x.shape[0], H, C).transpose(0, 1)
+    h = torch.bmm(x, weight.transpose(1, 2))                # (H, N, C)
+    y = row_norm(h.view(-1, C), bias, gamma, beta, eps, act, dim,
+                 head_div=x.shape[1])
+    return y.view(H, -1, C)

@@ -27,7 +27,13 @@ plan and its registers and spill bytes (``-Xptxas -v``). The shapes:
   the U-Net runs there (FiLM, the residual with its 1×1 convolution's
   bias, none), each line with ``blocks_per_unet_call``, the number of the
   U-Net's 25 blocks it stands for; its plain version is PyTorch's chain
-  the kernel replaced (the bias add, GroupNorm, Mish, the epilogue).
+  the kernel replaced (the bias add, GroupNorm, Mish, the epilogue); then
+  its row path (one group of length 1, LayerNorm) at the TD-MPC2
+  planner's tails, 131,072 rows of 512 (256 envs × 512 samples): Mish,
+  SimNorm, and the 5-head ensemble after its shared GEMM (head_div 1) and
+  after its batched one (head_div 131,072), each with
+  ``launches_per_iteration``, its plain version ``row_plain`` (the bias
+  add, ``F.layer_norm``, the activation).
 
 ``--root`` imports ``paddlerobotics_torch`` from another checkout with the
 same wrapper interfaces, so that two versions are timed on one card within
@@ -36,7 +42,8 @@ one call (run them as A, B, B, A)::
     python3 paddlerobotics_torch/ops/kernel_time.py [--root DIR]
 
 The bound helpers (``count_ops_per_env``, ``attn_bound``,
-``track_match_bound``, ``upsample_bound``, ``groupnorm_bound``) and the
+``track_match_bound``, ``upsample_bound``, ``groupnorm_bound``,
+``row_norm_bound``) and the
 inputs the kernels are timed on (``window_mask``, ``walker_clip``,
 ``dynid_dynamics``) are importable; the card's tests hold the kernels on
 the same inputs.
@@ -168,6 +175,24 @@ def groupnorm_bound(B: int, C: int, L: int, epilogue: str) -> dict:
     extra = {"none": 0, "film": 2 * B * C, "residual": B * C * L + C}
     return _bound(4 * (2 * B * C * L + 3 * C + extra[epilogue]), 0,
                   PEAK_FP32_FLOPS)
+
+
+def row_norm_bound(R: int, C: int, heads: int) -> dict:
+    """Least time of one ``row_norm`` call (ms): the GEMM's output read
+    once and the layer's output written once, each head's bias, scale and
+    shift once, at the HBM rate. Bytes only, as ``groupnorm_bound``."""
+    return _bound(4 * (2 * R * C + 3 * heads * C), 0, PEAK_FP32_FLOPS)
+
+
+# (rows, C, act, heads, head_div, launches of that kind in one iteration of
+# the published planner at 256 envs × 512 samples): the dynamics' and the
+# reward's hidden layers over the horizon and the policy's, the dynamics'
+# SimNorm, the Q ensemble's two layers
+PLAN_ROWS = 256 * 512
+PLAN_NORM_ROWS = ((PLAN_ROWS, 512, "mish", 1, 1, 14),
+                  (PLAN_ROWS, 512, "simnorm", 1, 1, 3),
+                  (5 * PLAN_ROWS, 512, "mish", 5, 1, 1),
+                  (5 * PLAN_ROWS, 512, "mish", 5, PLAN_ROWS, 1))
 
 
 # (C, L, epilogue, blocks of that kind in one call) of the published U-Net's
@@ -599,6 +624,33 @@ def groupnorm_lines(dev, lines: list) -> None:
                       "spill_bytes": regs["spill_bytes"]})
 
 
+def row_norm_lines(dev, lines: list) -> None:
+    import torch
+
+    from paddlerobotics_torch.ops import groupnorm_mish as gn
+
+    gn.build()
+    regs = registers(gn.build_info)
+    g = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    for R, C, act, heads, head_div, n in PLAN_NORM_ROWS:
+        h = randn(R, C)
+        shape = (C,) if heads == 1 else (heads, C)
+        vecs = dict(bias=0.1 * randn(*shape), gamma=1 + 0.1 * randn(*shape),
+                    beta=0.1 * randn(*shape), eps=1e-5, act=act,
+                    head_div=head_div)
+        line = kernel_line(lambda: gn.row_norm(h, **vecs),
+                           lambda: gn.row_plain(h, **vecs), None, 50,
+                           "row_norm_kernel")
+        lines.append({"kernel": "row_norm", "rows": R, "C": C, "act": act,
+                      "heads": heads, "head_div": head_div,
+                      "launches_per_iteration": n, **line,
+                      **row_norm_bound(R, C, heads),
+                      "plan": gn.row_launch_plan(R, C),
+                      "max_registers": regs["max_registers"],
+                      "spill_bytes": regs["spill_bytes"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve()
@@ -622,7 +674,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     for timer in (physics_lines, attention_lines, track_match_line,
-                  upsample_lines, groupnorm_lines):
+                  upsample_lines, groupnorm_lines, row_norm_lines):
         lines: list = []
         timer(dev, lines)
         for line in lines:

@@ -15,6 +15,14 @@ and at the small U-Net's shapes; ``conv_groupnorm_mish`` against the
 composition on a transposed input; the refusals; the NaN checks; the
 published U-Net and DDIM-10 at B=4096 against the plain reference, 25
 launches a U-Net call.
+
+The row path (one group of length 1: LayerNorm, TD-MPC2's ``NormedLinear``
+tail): on the CPU ``linear_norm_act`` and ``heads_linear_norm_act`` are the
+published ``F.linear → F.layer_norm → Mish / SimNorm`` bit for bit, and a
+float64 model of the row kernel's arithmetic against ``row_plain`` at the
+planner's shapes; on the card the kernel against ``row_plain`` at those
+shapes (Mish, SimNorm, the 5-head ensemble both ways), the GEMM-and-kernel
+path against the composition, its refusals and NaN check.
 """
 
 import dataclasses
@@ -431,3 +439,194 @@ def test_unet_and_ddim_at_b4096_against_the_reference(cuda):
     with torch.no_grad():
         plan_ref = ref.ddim_sample(w, hist, noise, d)
     assert scaled_gap(plan, plan_ref) <= 2e-4
+
+
+# --- the row path (L = 1) ----------------------------------------------------
+
+# (rows, C, act, heads, head_div) of the TD-MPC2 planner's tails at B=256 ×
+# 512 samples: the hidden layers (Mish), the dynamics' SimNorm, the Q
+# ensemble after its shared GEMM (head_div 1) and its batched one
+# (head_div = rows per head); the encoder's 256-wide layer; a small width.
+ROW_SHAPES = [(131072, 512, "mish", 1, 1), (131072, 512, "simnorm", 1, 1),
+              (655360, 512, "mish", 5, 1), (655360, 512, "mish", 5, 131072),
+              (256, 256, "mish", 1, 1), (96, 64, "simnorm", 1, 1)]
+ROW_IDS = ["mish", "simnorm", "heads_shared", "heads_batched", "encoder",
+           "small_simnorm"]
+
+
+def row_operands(R, C, heads, seed=0, device="cpu"):
+    """h ~ N(0, 1) (a GEMM's output) and the per-head vectors as the
+    reference's ``make_weights`` draws them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device=device)
+    shape = (C,) if heads == 1 else (heads, C)
+    return randn(R, C), dict(bias=0.1 * randn(*shape),
+                             gamma=1 + 0.1 * randn(*shape),
+                             beta=0.1 * randn(*shape), eps=1e-5)
+
+
+def row_model(h, bias, gamma, beta, eps, act, dim=8, head_div=1):
+    """The row kernel's arithmetic in float64: each row plus its head's
+    bias, two-pass biased statistics, (v − μ)·γ/√(var + eps) + β, then
+    Mish or a max-shifted softmax over groups of ``dim``."""
+    h = h.double()
+    R, C = h.shape
+    heads = bias.shape[0] if bias.dim() == 2 else 1
+    k = (torch.arange(R) // head_div) % heads
+    pick = lambda t: (t.double()[k] if t.dim() == 2 else t.double())
+    v = h + pick(bias)
+    mu = v.mean(-1, keepdim=True)
+    var = ((v - mu) ** 2).mean(-1, keepdim=True)
+    u = (v - mu) / torch.sqrt(var + eps) * pick(gamma) + pick(beta)
+    if act == "mish":
+        return u * torch.tanh(torch.log1p(torch.exp(u)))
+    x = u.view(R, -1, dim)
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True)).view(R, C)
+
+
+@pytest.mark.parametrize("act", ["mish", "simnorm"])
+def test_row_path_cpu_is_the_published_composition(act):
+    """On the CPU ``linear_norm_act`` returns what ``nn.Linear``,
+    ``nn.LayerNorm`` and ``nn.Mish`` or the published SimNorm return, bit
+    for bit, and its gradients; ``heads_linear_norm_act`` is the same head
+    by head, on a shared input and on one input a head."""
+    torch.manual_seed(1)
+    lin, ln = nn.Linear(20, 64), nn.LayerNorm(64)
+    x = torch.randn(6, 20).requires_grad_()
+    y = ln(lin(x))
+    want = F.mish(y) if act == "mish" else F.softmax(
+        y.view(6, 8, 8), -1).view(6, 64)
+    got = gn.linear_norm_act(x, lin.weight, lin.bias, ln.weight, ln.bias,
+                             ln.eps, act)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    gw, gx = torch.autograd.grad(got.square().sum(), (lin.weight, x))
+    ww, wx = torch.autograd.grad(want.square().sum(), (lin.weight, x))
+    torch.testing.assert_close(gw, ww, rtol=0, atol=0)
+    torch.testing.assert_close(gx, wx, rtol=0, atol=0)
+    g = torch.Generator().manual_seed(2)
+    w = torch.randn(3, 64, 20, generator=g)
+    vecs = [torch.randn(3, 64, generator=g) for _ in range(3)]
+    for inp in (x.detach(), torch.randn(3, 6, 20, generator=g)):
+        got = gn.heads_linear_norm_act(inp, w, *vecs, 1e-5, act)
+        for k in range(3):
+            xk = inp if inp.dim() == 2 else inp[k]
+            want = gn.linear_norm_act(xk, w[k], vecs[0][k], vecs[1][k],
+                                      vecs[2][k], 1e-5, act)
+            torch.testing.assert_close(got[k], want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("R,C,act,heads,head_div", [
+    (max(R // 2048, 16), C, act, heads, max(div // 2048, 1))
+    for R, C, act, heads, div in ROW_SHAPES], ids=ROW_IDS)
+def test_row_plain_matches_a_model_of_the_kernels_arithmetic(R, C, act,
+                                                             heads, head_div):
+    """``row_plain`` (PyTorch's LayerNorm, Mish and softmax in float32,
+    each row its head's parameters) against the row kernel's formulas in
+    float64, at the planner's widths with fewer rows: within 2e-6 of the
+    output's scale."""
+    h, kw = row_operands(R, C, heads, seed=C + heads)
+    got = gn.row_plain(h, act=act, head_div=head_div, **kw)
+    assert got.shape == (R, C) and got.dtype == torch.float32
+    assert scaled_gap(got.double(),
+                      row_model(h, act=act, head_div=head_div, **kw)) <= 2e-6
+
+
+def test_check_rows_refuses():
+    """``check_rows`` refuses what the row kernel does not take: an
+    unknown activation, dtype, shapes, strides, rows of more than 512 or
+    not a multiple of 4 floats, rows that do not split into the heads,
+    SimNorm groups that do not tile the row."""
+    h, kw = row_operands(12, 64, 3)
+    vecs = [kw[k] for k in ("bias", "gamma", "beta")]
+    gn.check_rows(h, *vecs, "mish", 8, 4)
+    bad = [((h, *vecs, "relu", 8, 1), "act"),
+           ((h.double(), *vecs, "mish", 8, 1), "dtype"),
+           ((h.t().contiguous().t(), *vecs, "mish", 8, 1), "not contiguous"),
+           ((h[0], *vecs, "mish", 8, 1), "\\(rows, C\\)"),
+           ((h, vecs[0][:, :32], *vecs[1:], "mish", 8, 1), "bias: shape"),
+           ((h, vecs[0], vecs[1][:2], vecs[2], "mish", 8, 1), "gamma: shape"),
+           ((h, *vecs, "mish", 8, 5), "blocks of 3 heads"),
+           ((h, *vecs, "simnorm", 24, 1), "SimNorm groups")]
+    for args, msg in bad:
+        with pytest.raises((ValueError, TypeError), match=msg):
+            gn.check_rows(*args)
+    for C in (1024, 66):
+        big, bkw = row_operands(4, C, 1)
+        with pytest.raises(ValueError, match="multiples of 4 up to 512"):
+            gn.check_rows(big, bkw["bias"], bkw["gamma"], bkw["beta"],
+                          "mish", 8, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,act,heads,head_div", ROW_SHAPES, ids=ROW_IDS)
+def test_row_kernel_matches_plain(cuda, R, C, act, heads, head_div):
+    """The row kernel against ``row_plain`` in float32 on the card at the
+    planner's shapes, in one launch: within 1e-5 of the output's scale
+    (512-term statistics in another order, Mish's functions or a softmax
+    of 8)."""
+    h, kw = row_operands(R, C, heads, seed=R % 977, device=cuda)
+    launches = gn.groupnorm_mish.launches
+    got = gn.row_norm(h, act=act, head_div=head_div, **kw)
+    torch.cuda.synchronize()
+    assert gn.groupnorm_mish.launches == launches + 1
+    want = gn.row_plain(h, act=act, head_div=head_div, **kw)
+    assert scaled_gap(got, want) <= 1e-5
+    assert gn.row_launch_plan(R, C)["floats_per_lane"] == (
+        4 if C <= 128 else 8 if C <= 256 else 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "batched"])
+@pytest.mark.parametrize("act", ["mish", "simnorm"])
+def test_linear_norm_act_matches_the_composition_on_the_card(cuda, act,
+                                                             shared):
+    """The bias-less GEMM and the row kernel against cuBLAS with the bias,
+    ``F.layer_norm`` and the activation, for one layer and for 5 heads (a
+    shared input through one GEMM, one input a head through a batched
+    one), at 4096 rows of 524 → 512: within 1e-5 of the output's scale."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    w = randn(5, 512, 524) / 524 ** 0.5
+    vecs = [0.1 * randn(5, 512), 1 + 0.1 * randn(5, 512),
+            0.1 * randn(5, 512)]
+    x = randn(4096, 524) if shared else randn(5, 4096, 524)
+    sn = lambda y: (F.mish(y) if act == "mish" else
+                    F.softmax(y.view(*y.shape[:-1], 64, 8), -1).view(y.shape))
+    with torch.no_grad():
+        got = gn.heads_linear_norm_act(x, w, *vecs, 1e-5, act)
+        one = gn.linear_norm_act(x if shared else x[0], w[0], vecs[0][0],
+                                 vecs[1][0], vecs[2][0], 1e-5, act)
+        for k in range(5):
+            xk = x if shared else x[k]
+            want = sn(F.layer_norm(F.linear(xk, w[k], vecs[0][k]), (512,),
+                                   vecs[1][k], vecs[2][k], 1e-5))
+            assert scaled_gap(got[k], want) <= 1e-5
+            if k == 0:
+                assert scaled_gap(one, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_row_kernel_refuses_and_checks_nan(cuda):
+    """On the card the row path raises where the kernel cannot run (under
+    grad, a dtype, a row of 1024 floats), launches nothing then, and under
+    the NaN checks names the kernel."""
+    h, kw = row_operands(64, 512, 1, device=cuda)
+    launches = gn.groupnorm_mish.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        gn.row_norm(h, **{**kw, "gamma": kw["gamma"].clone()
+                          .requires_grad_()})
+    with pytest.raises(TypeError, match="dtype"):
+        gn.row_norm(h.double(), **kw)
+    big, bkw = row_operands(4, 1024, 1, device=cuda)
+    with pytest.raises(ValueError, match="up to 512"):
+        gn.row_norm(big, **bkw)
+    assert gn.groupnorm_mish.launches == launches
+    h[3, 40] = float("nan")
+    assert bool(torch.isnan(gn.row_norm(h, **kw)).any())
+    profiler.enable_nan_checks()
+    try:
+        with pytest.raises(FloatingPointError, match="row_norm"):
+            gn.row_norm(h, **kw)
+    finally:
+        profiler.enable_nan_checks(False)
