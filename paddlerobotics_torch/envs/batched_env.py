@@ -65,7 +65,7 @@ from paddlerobotics_torch.envs import reward as reward_mod
 from paddlerobotics_torch.etg import fit as etg_fit
 from paddlerobotics_torch.etg import model as etg_model
 from paddlerobotics_torch.etg import oscillator
-from paddlerobotics_torch.ops import physics_step
+from paddlerobotics_torch.ops import etg_residual, physics_step
 from paddlerobotics_torch.ops import smallalg as sa
 from paddlerobotics_torch.parallel import sharding
 from paddlerobotics_torch.sim import a1_model as a1
@@ -128,26 +128,6 @@ class BEnvState:
                    dr_scale=dr_scale)
 
 
-def _soa_ik(fx, fy, fz, l_hip):
-    """SoA leg IK: foot position in hip frame (4,B) comps → angles (4,B)×3.
-
-    Same closed form as a1.py:97-110, componentwise; `l_hip` is the
-    signed (4,1) hip offset."""
-    l_up = l_low = a1.L_UP
-    d2 = fx * fx + fy * fy + fz * fz
-    cos_knee = (d2 - l_hip * l_hip - l_low ** 2 - l_up ** 2) / (2 * l_low * l_up)
-    theta_knee = -torch.acos(torch.clamp(cos_knee, -1.0, 1.0))
-    l = torch.sqrt(torch.clamp(
-        l_up ** 2 + l_low ** 2 + 2 * l_up * l_low * torch.cos(theta_knee),
-        min=1e-12))
-    theta_hip = torch.asin(torch.clamp(-fx / l, -1.0, 1.0)) - theta_knee * 0.5
-    c_eff = torch.cos(theta_hip + theta_knee * 0.5)
-    c1 = l_hip * fy - l * c_eff * fz
-    s1 = l * c_eff * fy + l_hip * fz
-    theta_ab = torch.atan2(s1, c1)
-    return theta_ab, theta_hip, theta_knee
-
-
 class BatchedQuadrupedEnv:
     def __init__(self, config: QuadrupedConfig, num_envs: int,
                  device: str | torch.device | None = None, mesh=None):
@@ -183,12 +163,7 @@ class BatchedQuadrupedEnv:
         self._hist_len = need if need <= n else -(-need // n) * n
         self._etg_cfg = etg_model.resolve_pairing(config.etg,
                                                   config.task.task_mode)
-        self._sel_a = torch.as_tensor(
-            etg_model.leg_phase_group(self._etg_cfg.pairing) == 0,
-            device=dev)[:, None]                                   # (4,1)
         self._w0, self._b0 = etg_fit.opt_with_points(config.etg, device=dev)
-        self._centers = torch.as_tensor(
-            oscillator.centers(config.etg).astype(np.float32), device=dev)
         mode = config.train.act_mode
         self.act_offset = np.zeros(12, np.float32)
         if mode == "pose":
@@ -222,14 +197,22 @@ class BatchedQuadrupedEnv:
                np.asarray(etg_model.LATERAL_SIGN)).astype(np.float32)
         col = lambda a: torch.as_tensor(
             np.asarray(a, np.float32), device=dev)[:, None]
-        self._lat = col(lat)
-        self._stx = col(etg_model.STANCE_OFFSET_X)
         feet = etg_model.default_foot_positions().astype(np.float32)
         hips = a1.HIP_OFFSETS.astype(np.float32)
-        self._feet = [col(feet[:, i]) for i in range(3)]
-        self._hips = [col(hips[:, i]) for i in range(3)]
-        self._l_hip = col(a1.HIP_SIGNS.astype(np.float32)) * a1.L_HIP
         self._q0 = col(a1.INIT_MOTOR_ANGLES)
+        self._etg = etg_residual.Consts.pack(
+            config.etg,
+            centers=torch.as_tensor(
+                oscillator.centers(config.etg).astype(np.float32),
+                device=dev),
+            sel_a=torch.as_tensor(
+                etg_model.leg_phase_group(self._etg_cfg.pairing) == 0,
+                device=dev)[:, None],
+            stx=col(etg_model.STANCE_OFFSET_X), lat=col(lat),
+            feet=[col(feet[:, i]) for i in range(3)],
+            hips=[col(hips[:, i]) for i in range(3)],
+            l_hip=col(a1.HIP_SIGNS.astype(np.float32)) * a1.L_HIP,
+            q0=self._q0)
         self._lo = col(a1.MOTOR_LOWER)
         self._hi = col(a1.MOTOR_UPPER)
         self._etg_mean = col(sensors.ETG_MEAN)
@@ -264,37 +247,11 @@ class BatchedQuadrupedEnv:
 
     # -- ETG (SoA) ------------------------------------------------------------
 
-    def _phase_features(self, t: torch.Tensor) -> torch.Tensor:
-        """V(t) for per-env times t (B,) → (H,B)."""
-        cfg = self.cfg.etg
-        p1 = cfg.amp * torch.sin(2 * math.pi / cfg.T * t + cfg.phase[0])
-        p2 = cfg.amp * torch.sin(2 * math.pi / cfg.T2 * t + cfg.phase[1])
-        u = self._centers  # (H,2)
-        d2 = (p1[None, :] - u[:, 0:1]) ** 2 + (p2[None, :] - u[:, 1:2]) ** 2
-        return torch.exp(-d2 / cfg.sigma_sq)
-
     def _etg_residual(self, etg_w, etg_b, step_idx):
-        """ETG joint residual (12,B), swing/stance masks (4,B), V(t)."""
-        dt = self.cfg.etg.dt
-        t = step_idx.to(F32) * dt
-        v_a = self._phase_features(t)                      # (H,B)
-        v_b = self._phase_features(t + self.cfg.etg.T / 2)
-        # readout: delta[x] = Σ_h w[x,h]·V[h] + b[x]
-        d_a = torch.einsum("xhb,hb->xb", etg_w, v_a) + etg_b   # (3,B)
-        d_b = torch.einsum("xhb,hb->xb", etg_w, v_b) + etg_b
-        sel = self._sel_a
-        dx = torch.where(sel, d_a[0][None, :], d_b[0][None, :]) + self._stx
-        dy = torch.where(sel, d_a[1][None, :], d_b[1][None, :]) + self._lat
-        dz = torch.where(sel, d_a[2][None, :], d_b[2][None, :])
-        fx = self._feet[0] - self._hips[0] + dx
-        fy = self._feet[1] - self._hips[1] + dy
-        fz = self._feet[2] - self._hips[2] + dz
-        t_ab, t_hip, t_knee = _soa_ik(fx, fy, fz, self._l_hip)
-        q = torch.stack([t_ab, t_hip, t_knee], dim=1).reshape(12, -1)
-        etg_act = q - self._q0
-        swing = dz > 0.02
-        stance = dz <= 0.005
-        return etg_act, swing, stance, v_a
+        """ETG joint residual (12,B), swing/stance masks (4,B), V(t)
+        (``ops/etg_residual``: one kernel launch on the card, the PyTorch
+        composition on the CPU)."""
+        return etg_residual.etg_residual(etg_w, etg_b, step_idx, self._etg)
 
     # -- reset ----------------------------------------------------------------
 

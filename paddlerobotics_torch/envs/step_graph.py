@@ -43,8 +43,10 @@ cache refer to each other), and freeing them inside another capture
 invalidates it, so a capture collects first and holds the collector off
 until it ends.
 
-``physics_step.control_step.launches`` advances by the capture's launches
-(one) on every replay and not on the capture itself. ``stats`` (the env's
+``physics_step.control_step.launches`` and ``etg_residual.launches``
+advance by the capture's launches (one and two) on every replay and not on
+the capture itself; a replay adds its ETG launches to the profiler's
+``etg_launches`` counter. ``stats`` (the env's
 ``graph_stats``) counts captures, replays and eager calls by reason. The
 graphed call's ``env.step`` span holds ``env.graph.copy_in``,
 ``env.graph.replay`` and ``env.graph.copy_out``; a capturing call's holds
@@ -60,7 +62,7 @@ from typing import List, Optional
 
 import torch
 
-from paddlerobotics_torch.ops import physics_step
+from paddlerobotics_torch.ops import etg_residual, physics_step
 from paddlerobotics_torch.utils import profiler
 
 
@@ -115,6 +117,7 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(state.rng)
         launches = physics_step.control_step.launches
+        etg_launches = etg_residual.etg_residual.launches
         rng_state = state.rng.get_state()
         # A collection inside the capture can destroy the graphs of an env
         # the caller dropped, which invalidates the capture (torch.cuda.graph
@@ -133,6 +136,9 @@ class _Graph:
                 gc.enable()
             self.launches = physics_step.control_step.launches - launches
             physics_step.control_step.launches = launches
+            self.etg_launches = (etg_residual.etg_residual.launches
+                                 - etg_launches)
+            etg_residual.etg_residual.launches = etg_launches
         if not torch.equal(state.rng.get_state(), rng_state):
             state.rng.set_state(rng_state)
         self.n_state = len(leaves)
@@ -173,6 +179,8 @@ class _Graph:
         with profiler.annotate("env.graph.replay"):
             self.graph.replay()
             physics_step.control_step.launches += self.launches
+            etg_residual.etg_residual.launches += self.etg_launches
+            profiler.count("etg_launches", self.etg_launches)
         with profiler.annotate("env.graph.copy_out"):
             fresh = [torch.empty_like(t) for t in self.copy]
             for ix, static in self.out_groups:

@@ -1,4 +1,4 @@
-"""Time the port's five hand-written kernels on the card, each alone.
+"""Time the port's six hand-written kernels on the card, each alone.
 
 For each kernel and shape it prints one JSON line: the kernel's device ms
 per launch under ``torch.profiler`` and its CUDA-event ms per wrapper call,
@@ -33,7 +33,14 @@ plan and its registers and spill bytes (``-Xptxas -v``). The shapes:
   SimNorm, and the 5-head ensemble after its shared GEMM (head_div 1) and
   after its batched one (head_div 131,072), each with
   ``launches_per_iteration``, its plain version ``row_plain`` (the bias
-  add, ``F.layer_norm``, the activation).
+  add, ``F.layer_norm``, the activation);
+- ``etg_residual`` (``ops/csrc/etg_residual.cu``) at the rollout's B=4096,
+  the deployment loop's B=1 and the ES envs' B=320 (H=20, the default
+  constants, the fitted readout perturbed per env, step indices over ten
+  gait periods), its plain version the env's PyTorch composition (~90
+  kernels a call on the card), each line with the kernel's widest
+  difference from it (``act_max_abs_diff``; ``v_a_equal``; ``mask_flips``,
+  masks that differ). A checkout without the kernel prints no such line.
 
 ``--root`` imports ``paddlerobotics_torch`` from another checkout with the
 same wrapper interfaces, so that two versions are timed on one card within
@@ -43,7 +50,7 @@ one call (run them as A, B, B, A)::
 
 The bound helpers (``count_ops_per_env``, ``attn_bound``,
 ``track_match_bound``, ``upsample_bound``, ``groupnorm_bound``,
-``row_norm_bound``) and the
+``row_norm_bound``, ``etg_bound``) and the
 inputs the kernels are timed on (``window_mask``, ``walker_clip``,
 ``dynid_dynamics``) are importable; the card's tests hold the kernels on
 the same inputs.
@@ -182,6 +189,19 @@ def row_norm_bound(R: int, C: int, heads: int) -> dict:
     once and the layer's output written once, each head's bias, scale and
     shift once, at the HBM rate. Bytes only, as ``groupnorm_bound``."""
     return _bound(4 * (2 * R * C + 3 * heads * C), 0, PEAK_FP32_FLOPS)
+
+
+def etg_bound(B: int, H: int) -> dict:
+    """Least time of one ETG residual call (ms): the readout (3, H, B), its
+    bias and the step index read once, the residual (12, B), the two masks
+    (4, B) of bytes and V(t) (H, B) written once, at the HBM rate. Bytes
+    only: H precise exponentials and a dozen other functions a (leg, env)
+    leave it far below the FP32 line."""
+    return _bound(4 * (3 * H * B + 3 * B + B) + 4 * (12 * B + H * B)
+                  + 2 * 4 * B, 0, PEAK_FP32_FLOPS)
+
+
+ETG_BATCHES = (B, 1, 320)               # rollout, deployment loop, ES envs
 
 
 # (rows, C, act, heads, head_div, launches of that kind in one iteration of
@@ -651,6 +671,44 @@ def row_norm_lines(dev, lines: list) -> None:
                       "spill_bytes": regs["spill_bytes"]})
 
 
+def etg_lines(dev, lines: list) -> None:
+    import torch
+
+    try:
+        from paddlerobotics_torch.ops import etg_residual as er
+    except ImportError:                 # a checkout from before the kernel
+        return
+    from paddlerobotics_torch.core.config import QuadrupedConfig
+    from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
+
+    er.build()
+    regs = registers(er.build_info)
+    env = BatchedQuadrupedEnv(QuadrupedConfig(), 1, device=dev)
+    k, H = env._etg, env._w0.shape[1]
+    g = torch.Generator(device=dev).manual_seed(0)
+    for Bx in ETG_BATCHES:
+        w = env._w0[..., None] + 0.02 * torch.randn(
+            (3, H, Bx), generator=g, device=dev)
+        b = env._b0[:, None] + 0.01 * torch.randn((3, Bx), generator=g,
+                                                  device=dev)
+        steps = round(10 * k.etg.T / k.etg.dt)
+        idx = torch.randint(0, steps, (Bx,), generator=g, device=dev,
+                            dtype=torch.int32)
+        kern = lambda: er.etg_residual(w, b, idx, k)
+        plain = lambda: er.plain(w, b, idx, k)
+        line = kernel_line(kern, plain, None, 200, "etg_residual_kernel")
+        got, want = kern(), plain()
+        lines.append({
+            "kernel": "etg_residual", "B": Bx, "H": H, **line,
+            **etg_bound(Bx, H), "plan": er.launch_plan(Bx, H),
+            "act_max_abs_diff": float((got[0] - want[0]).abs().max()),
+            "v_a_equal": bool(torch.equal(got[3], want[3])),
+            "mask_flips": int((got[1] != want[1]).sum()
+                              + (got[2] != want[2]).sum()),
+            "max_registers": regs["max_registers"],
+            "spill_bytes": regs["spill_bytes"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve()
@@ -674,7 +732,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     for timer in (physics_lines, attention_lines, track_match_line,
-                  upsample_lines, groupnorm_lines, row_norm_lines):
+                  upsample_lines, groupnorm_lines, row_norm_lines,
+                  etg_lines):
         lines: list = []
         timer(dev, lines)
         for line in lines:

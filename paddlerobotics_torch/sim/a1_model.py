@@ -4,9 +4,9 @@ Geometry/gain constants mirror the reference's A1 description
 (QuadrupedalRobots/ETGRL/deployment/robots/a1.py:62-91) and the public
 Unitree a1.urdf (mass/inertia blocks), and the leg kinematics (FK, IK,
 analytic Jacobian) as plain functions on float32 tensors with a trailing
-component axis. The batched env does its own SoA leg IK
-(``envs/batched_env._soa_ik``); these serve the gait table, the deployment
-estimator and the tests.
+component axis. The batched env's ETG residual does its own SoA leg IK
+(``ops/etg_residual.soa_ik``); these serve the per-env residual
+(``etg/model.etg_joint_residual``), the deployment estimator and the tests.
 
 Leg order everywhere: 0=FR, 1=FL, 2=RR, 3=RL (a1.py MOTOR_NAMES).
 Each leg: [abduction(hip, rot-x), hip pitch(upper, rot-y), knee(lower, rot-y)].

@@ -12,10 +12,15 @@ attention kernel (``ops/csrc/attention.cu``) against
 head dims 16 to 128, and at the full-width ERNIE encoder's layer 0 in its
 wide plan and, on its shortest rows, its split plan; ``track_match``
 (``ops/csrc/track_match.cu``) against ``track_match_plain`` on 216 seeded
-steps; the NaN checks on faults planted inside the physics and attention
-kernels and in a backward pass; a trace of annotated env steps.
+steps; the ETG residual (``ops/csrc/etg_residual.cu``) against its
+composition at B = 1, 40, 320 and 4096, two H and both pairings, its
+refusals and NaN check; the NaN checks on faults planted inside the physics
+and attention kernels and in a backward pass; a trace of annotated env
+steps, and a traced replay of the graphed step at B=4096 (two ETG launches
+a step, none of the readout's GEMVs).
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -26,8 +31,8 @@ from scipy.optimize import linear_sum_assignment
 from paddlerobotics_torch.core.config import QuadrupedConfig, SimConfig, TaskConfig
 from paddlerobotics_torch.envs import randomize
 from paddlerobotics_torch.envs.batched_env import BatchedQuadrupedEnv
-from paddlerobotics_torch.ops import (attention, groupnorm_mish, lap,
-                                      physics_step, upsample1d)
+from paddlerobotics_torch.ops import (attention, etg_residual, groupnorm_mish,
+                                      lap, physics_step, upsample1d)
 from paddlerobotics_torch.ops.kernel_time import dynid_dynamics, window_mask
 from paddlerobotics_torch.sim import sbatch, terrain
 from paddlerobotics_torch.utils import profiler
@@ -60,9 +65,9 @@ def es_batch(ecfg) -> int:
 
 
 @pytest.mark.parametrize("kernel", [physics_step, attention, lap, upsample1d,
-                                    groupnorm_mish],
+                                    groupnorm_mish, etg_residual],
                          ids=["physics_step", "attention", "track_match",
-                              "upsample1d", "groupnorm_mish"])
+                              "upsample1d", "groupnorm_mish", "etg_residual"])
 def test_build_reports_registers_and_spills(cuda, kernel):
     kernel.build()
     assert kernel.build_info["ptxas"]
@@ -360,6 +365,120 @@ def test_track_match_matches_plain_on_216_seeded_steps(cuda):
     assert not failed
 
 
+# --- the ETG residual ------------------------------------------------------------
+
+ETG_BATCHES = [1, 40, 320, B]           # deploy, dynamics ID, ES, rollout
+ETG_H = [20, 48]                        # the default; two chunks a half
+ETG_ACT_TOL = 1e-5
+# a mask may differ where dz lies this close to a threshold: where cuBLAS
+# splits the readout's sum otherwise than the kernel (the split is the
+# library's own choice, so its float32 rounding is all the test holds)
+ETG_DZ_ROUNDING = 1e-6
+
+
+@pytest.fixture(scope="module")
+def etg_consts(cuda):
+    """Each (H, pairing)'s constants, from a one-env env on the card (the
+    constants do not depend on the batch), with its fitted readout."""
+    out = {}
+    for H in ETG_H:
+        for pairing in ("trot", "bound"):
+            cfg = QuadrupedConfig(etg=dataclasses.replace(
+                QuadrupedConfig().etg, H=H, pairing=pairing))
+            env = BatchedQuadrupedEnv(cfg, 1, device=cuda)
+            out[H, pairing] = (env._etg, env._w0, env._b0)
+    return out
+
+
+def etg_inputs(k, w0, b0, Bx: int, seed: int):
+    """The fitted readout perturbed per env, and step indices over ten
+    gait periods."""
+    g = torch.Generator(device=w0.device).manual_seed(seed)
+    w = w0[..., None] + 0.02 * torch.randn(
+        (*w0.shape, Bx), generator=g, device=w0.device)
+    b = b0[:, None] + 0.01 * torch.randn((3, Bx), generator=g,
+                                         device=w0.device)
+    steps = round(10 * k.etg.T / k.etg.dt)
+    idx = torch.randint(0, steps, (Bx,), generator=g, device=w0.device,
+                        dtype=torch.int32)
+    return w, b, idx
+
+
+def composed_dz(k, w, b, idx):
+    """dz (4, B) as the composition computes it."""
+    t = idx.to(torch.float32) * k.etg.dt
+    d = [torch.einsum("xhb,hb->xb", w, etg_residual.phase_features(k, tt))
+         + b for tt in (t, t + k.etg.T / 2)]
+    return torch.where(k.sel_a, d[0][2][None, :], d[1][2][None, :])
+
+
+@pytest.mark.parametrize("Bx", ETG_BATCHES)
+@pytest.mark.parametrize("H", ETG_H)
+@pytest.mark.parametrize("pairing", ["trot", "bound"])
+def test_etg_kernel_matches_the_composition(etg_consts, Bx, H, pairing,
+                                           record_property):
+    """One launch a call; V(t) bit-equal; the residual within ETG_ACT_TOL;
+    the masks equal but where dz lies within rounding of a threshold.
+    Whether every output is bit-equal (where cuBLAS sums the readout in the
+    kernel's two halves, as it did at H=20 for every batch here with the
+    cuBLAS the kernel's source names) is recorded as ``bit_equal``, not
+    held: the split is cuBLAS's choice, not the kernel's arithmetic."""
+    k, w0, b0 = etg_consts[H, pairing]
+    w, b, idx = etg_inputs(k, w0, b0, Bx, seed=Bx + H)
+    n = etg_residual.etg_residual.launches
+    act, swing, stance, v_a = etg_residual.etg_residual(w, b, idx, k)
+    p_act, p_swing, p_stance, p_v = etg_residual.plain(w, b, idx, k)
+    torch.cuda.synchronize()
+    assert etg_residual.etg_residual.launches == n + 1
+    assert torch.equal(v_a, p_v)
+    assert float((act - p_act).abs().max()) <= ETG_ACT_TOL
+    dz = composed_dz(k, w, b, idx)
+    sure = ((dz - etg_residual.SWING_Z).abs() > ETG_DZ_ROUNDING) & (
+        (dz - etg_residual.STANCE_Z).abs() > ETG_DZ_ROUNDING)
+    assert torch.equal(swing[sure], p_swing[sure])
+    assert torch.equal(stance[sure], p_stance[sure])
+    record_property("bit_equal", bool(
+        torch.equal(act, p_act) and torch.equal(swing, p_swing)
+        and torch.equal(stance, p_stance)))
+    record_property("act_max_abs_diff", float((act - p_act).abs().max()))
+
+
+def test_etg_kernel_refuses_and_checks_nan(cuda, etg_consts):
+    """An H over MAX_H and an input that requires grad under grad mode
+    raise on the card path without a launch (the kernel has no backward;
+    under ``torch.no_grad()`` the same call launches it); under the NaN
+    checks a NaN in the readout raises naming the kernel."""
+    k, w0, b0 = etg_consts[20, "trot"]
+    w, b, idx = etg_inputs(k, w0, b0, 64, seed=1)
+    n = etg_residual.etg_residual.launches
+    for args in ((w.clone().requires_grad_(), b, idx),
+                 (w, b.clone().requires_grad_(), idx)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            etg_residual.etg_residual(*args, k)
+    assert etg_residual.etg_residual.launches == n
+    with torch.no_grad():
+        got = etg_residual.etg_residual(w.clone().requires_grad_(), b, idx,
+                                        k)[0]
+    assert etg_residual.etg_residual.launches == n + 1
+    assert torch.equal(got, etg_residual.etg_residual(w, b, idx, k)[0])
+    cfg = QuadrupedConfig(etg=dataclasses.replace(
+        QuadrupedConfig().etg, H=etg_residual.MAX_H + 1))
+    over = BatchedQuadrupedEnv(cfg, 1, device=cuda)
+    wo = over._w0[..., None].repeat(1, 1, 64)
+    n = etg_residual.etg_residual.launches
+    with pytest.raises(ValueError, match="phase features"):
+        etg_residual.etg_residual(wo, b, idx, over._etg)
+    assert etg_residual.etg_residual.launches == n
+    w[0, 0, 3] = float("nan")
+    profiler.enable_nan_checks()
+    try:
+        with pytest.raises(FloatingPointError,
+                           match=r"etg_residual \(ops/csrc/etg_residual.cu\)"):
+            etg_residual.etg_residual(w, b, idx, k)
+    finally:
+        profiler.enable_nan_checks(False)
+
+
 # --- the NaN checks and the trace ----------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -463,3 +582,31 @@ def test_trace_holds_three_physics_kernels_and_env_step_ranges(cuda, env4096,
     assert physics_step.control_step.launches == 3
     assert len(kernels) == 3
     assert len(ranges) == 3
+
+
+def test_traced_replay_runs_two_etg_kernels_a_step(cuda, env4096, tmp_path):
+    """Three replays of the graphed step at B=4096 under the profiler: two
+    ETG kernels a step, one GEMV a step (the observation's latency blend,
+    ``sim/sbatch.delayed_obs``; the composition's readout ran four more),
+    and ``etg_launches`` 2 a step."""
+    env, st0 = env4096
+    zeros = torch.zeros((env.B, 12), device=cuda)
+    state = st0
+    for _ in range(2):                  # the key's capture, then a replay
+        state = env.step(state, zeros)[0]
+    replays = env.graph_stats["replays"]
+    n = etg_residual.etg_residual.launches
+    profiler.collect_counters()
+    with profiler.trace(str(tmp_path)) as path:
+        for _ in range(3):
+            state = env.step(state, zeros)[0]
+    counters = profiler.collect_counters()
+    profiler.collect_spans()
+    with open(path) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    assert env.graph_stats["replays"] == replays + 3
+    assert sum("etg_residual_kernel" in k for k in kernels) == 6
+    assert sum("gemv" in k.lower() for k in kernels) == 3
+    assert counters.get("etg_launches") == 6
+    assert etg_residual.etg_residual.launches == n + 6
